@@ -12,7 +12,8 @@ Usage:
         --fx F] [--video out.mp4] [--device cuda|cpu]
 
 ``--eval``, ``--recon-3d``, ``--sdf-slice`` and ``--export-points`` are
-not ported yet and exit with an error. ``--video`` needs the ``imageio``
+not ported yet and exit with an error; ``refine_view_pose`` (:236-274),
+the per-view pose refinement that ``--eval`` will use, is. ``--video`` needs the ``imageio``
 package (with its ffmpeg plugin) to encode the MP4.
 """
 
@@ -64,12 +65,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_system(run_dir: str, device: str | torch.device = "cuda"):
+def load_system(run_dir: str, device: str | torch.device = "cuda",
+                gs_on: bool = False):
+    """(cfg, system) of a saved run. A run's flat ``config_all.yaml`` has
+    no sections, and ``Config.load`` turns a subsystem off when its section
+    is missing, whatever the file's ``gs_on`` says; ``gs_on=True`` turns
+    the GS subsystem (keyframe pool, exposure and pose-delta pools) back
+    on, for training on the loaded map."""
     from pings_tpu_torch.slam.pipeline import SlamSystem
 
     cfg_file = os.path.join(run_dir, "config_all.yaml")
     cfg = Config.load(cfg_file) if os.path.exists(cfg_file) else Config()
     cfg.silence = True
+    cfg.gs_on = cfg.gs_on or gs_on
     system = SlamSystem(cfg, device=device)
     ckpt = os.path.join(run_dir, "model", "pin_map.npz")
     if not os.path.exists(ckpt):
@@ -159,6 +167,36 @@ def render_poses(args, cfg, system, poses, out_dir):
 
         imageio.mimwrite(os.path.join(out_dir, args.video), frames, fps=10)
     return len(poses[::args.stride])
+
+
+def refine_view_pose(cfg, local, decoders, cam, w: int, h: int,
+                     iters: int = 50, lr: float = 1e-3,
+                     device: str | torch.device = "cuda"):
+    """Per-view camera pose refinement before evaluation: optimize a
+    (theta, rho) se3 delta with Adam on the Tukey-robust photometric loss
+    (c = 0.5) against the target view ``cam.rgb``. Returns the refined
+    (theta, rho) to pass into ``render()``."""
+    from pings_tpu_torch import resolve_device
+    from pings_tpu_torch.mapping.losses import tukey_loss
+    from pings_tpu_torch.mapping.sdf_mapper import AdamW
+    from pings_tpu_torch.models.renderer import render
+    from pings_tpu_torch.models.spawn import spawn_kwargs_from_cfg
+
+    dev = resolve_device(device)
+    spawn_kwargs = spawn_kwargs_from_cfg(cfg)
+    theta = torch.zeros(3, device=dev, requires_grad=True)
+    rho = torch.zeros(3, device=dev, requires_grad=True)
+    target = cam.rgb.to(dev)
+    opt = AdamW([theta, rho], lr=lr, eps=1e-8)
+    for _ in range(iters):
+        theta.grad = rho.grad = None
+        res = render(local, decoders, cam, w, h, theta=theta, rho=rho,
+                     spawn_kwargs=spawn_kwargs,
+                     max_per_tile=cfg.max_gs_per_tile, gs_type=cfg.gs_type,
+                     precision=cfg.raster_precision, device=dev)
+        tukey_loss(res.rgb, target, c=0.5).backward()
+        opt.step()
+    return theta.detach(), rho.detach()
 
 
 def main(argv=None):

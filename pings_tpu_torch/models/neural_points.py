@@ -4,20 +4,22 @@ Counterpart of ``pings_tpu/models/neural_points.py``: the
 ``NeuralPointMap`` fields (:56-77), ``compute_local_mask`` (:205-265) and
 a reader for the ``map.*`` keys of a JAX checkpoint. Every per-point
 tensor has ``cap + 1`` rows; the last is the dump/padding row.
-Insertion, queries and map maintenance belong to the training path and
-are not here yet.
+The read-only query (``make_stencil`` :272, ``query_neighbor_idx``
+:295-335, ``eval_neighbors`` :338-374, ``query_feature`` :380-400) is here
+too; insertion and map maintenance are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Mapping, Tuple
+from typing import Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from pings_tpu_torch import resolve_device
+from pings_tpu_torch.ops.transforms import voxel_hash
 
 _FIELDS = ("positions", "quats", "geo_feat", "color_feat", "rgb",
            "ts_create", "ts_update", "certainty", "valid_mask",
@@ -118,3 +120,103 @@ def compute_local_mask(
     local[-1] = False
     surrounding[-1] = False
     return local, surrounding
+
+
+# ---------------------------------------------------------------------------
+# Query
+# ---------------------------------------------------------------------------
+
+def make_stencil(num_nei_cells: int, search_alpha: float) -> np.ndarray:
+    """Fixed ball of voxel offsets: those with |o| < r + alpha."""
+    r = num_nei_cells
+    ax = np.arange(-r, r + 1)
+    ox, oy, oz = np.meshgrid(ax, ax, ax, indexing="ij")
+    offs = np.stack([ox, oy, oz], axis=-1).reshape(-1, 3)
+    keep = np.linalg.norm(offs, axis=-1) < (r + search_alpha)
+    return offs[keep].astype(np.int32)
+
+
+class QueryResult(NamedTuple):
+    feat: torch.Tensor        # (N, K, F+3) neighbour geo features + offsets
+    color_feat: torch.Tensor  # (N, K, Fc+3)
+    weights: torch.Tensor     # (N, K) IDW weights (0 for invalid neighbours)
+    nn_idx: torch.Tensor      # (N, K) neighbour point rows (cap = invalid)
+    nn_count: torch.Tensor    # (N,) number of valid neighbours
+    valid: torch.Tensor       # (N,) has >= 1 neighbour
+
+
+@torch.no_grad()
+def query_neighbor_idx(m: NeuralPointMap, qpts: torch.Tensor, k: int = 6,
+                       stencil_r: int = 1, search_alpha: float = 0.2,
+                       use_local_mask: bool = False) -> torch.Tensor:
+    """The heavy half of a neural-point query: stencil hash lookup and
+    K-nearest selection. Returns (N, K) int64 neighbour rows (cap =
+    invalid). No gradient: the selection is piecewise constant. Ties in
+    distance go to the lower stencil index (a stable sort), as
+    ``jax.lax.top_k`` breaks them."""
+    dev = qpts.device
+    stencil = torch.as_tensor(make_stencil(stencil_r, search_alpha),
+                              device=dev)
+    res = m.resolution
+    cap = m.capacity
+    coords = torch.floor(qpts / res).to(torch.int32)
+    ncoords = coords[:, None, :] + stencil[None, :, :]
+    idx = m.hash_table[voxel_hash(ncoords, m.buffer_size)].long()
+    invalid = idx < 0
+    idx = torch.where(invalid, torch.full_like(idx, cap), idx)
+    invalid = invalid | ~(m.local_mask if use_local_mask
+                          else m.valid_mask)[idx]
+    diff = qpts[:, None, :] - m.positions[idx]
+    d2 = torch.sum(diff * diff, dim=-1)
+    invalid = invalid | (d2 > ((stencil_r + search_alpha) * res) ** 2)
+    d2 = torch.where(invalid, torch.full_like(d2, float("inf")), d2)
+    d2_sorted, order = torch.sort(d2, dim=1, stable=True)
+    kidx = torch.gather(idx, 1, order[:, :k])
+    return torch.where(torch.isfinite(d2_sorted[:, :k]), kidx,
+                       torch.full_like(kidx, cap))
+
+
+def eval_neighbors(m: NeuralPointMap, qpts: torch.Tensor,
+                   kidx: torch.Tensor, stencil_r: int = 1,
+                   search_alpha: float = 0.2) -> QueryResult:
+    """The light half: gather the K selected rows and recompute distances,
+    IDW weights and offsets for ``qpts``. Differentiable in ``qpts`` and
+    in the map's feature arrays. Neighbours outside the search radius of
+    these particular points are invalidated again."""
+    res = m.resolution
+    cap = m.capacity
+    dev = qpts.device
+    kinvalid = kidx >= cap
+    npos = m.positions[kidx]
+    diff = qpts[:, None, :] - npos
+    d2 = torch.sum(diff * diff, dim=-1)
+    kinvalid = kinvalid | (d2 > ((stencil_r + search_alpha) * res) ** 2)
+    kidx = torch.where(kinvalid, torch.full_like(kidx, cap), kidx)
+
+    eps = 1e-6
+    zero = torch.zeros((), dtype=qpts.dtype, device=dev)
+    # the divisor is made finite before the division (as the JAX code's
+    # inf is): no NaN gradient through the unselected branch
+    w = torch.where(kinvalid, zero, 1.0 / (torch.where(
+        kinvalid, torch.ones_like(d2), d2) + eps))
+    wsum = torch.sum(w, dim=-1, keepdim=True)
+    w = w / torch.clamp_min(wsum, eps)
+
+    ki = kinvalid[..., None]
+    off = torch.where(ki, zero, diff / res)
+    gf = torch.where(ki, zero, m.geo_feat[kidx])
+    cf = torch.where(ki, zero, m.color_feat[kidx])
+    nn_count = torch.sum(~kinvalid, dim=-1)
+    return QueryResult(torch.cat([gf, off], dim=-1),
+                       torch.cat([cf, off], dim=-1), w, kidx, nn_count,
+                       nn_count > 0)
+
+
+def query_feature(m: NeuralPointMap, qpts: torch.Tensor, k: int = 6,
+                  stencil_r: int = 1, search_alpha: float = 0.2,
+                  use_local_mask: bool = False) -> QueryResult:
+    """K nearest neural points by stencil hash lookup, with IDW weights.
+    Per neighbour the feature is [feat, (q - p) / resolution]."""
+    kidx = query_neighbor_idx(m, qpts, k, stencil_r, search_alpha,
+                              use_local_mask)
+    return eval_neighbors(m, qpts, kidx, stencil_r, search_alpha)

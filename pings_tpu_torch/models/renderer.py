@@ -6,10 +6,13 @@ Gaussians from each, append optional frozen surrounding Gaussians,
 rasterize with an optional camera pose delta, then apply the exposure
 correction.
 
-The blend runs where the tensors live: on CUDA tensors the kernel of
-``ops/csrc/blend_fwd.cu``, on CPU tensors its plain PyTorch version.
-``render`` moves its inputs to ``device`` first; the default ``"cuda"``
-raises when no card is present.
+The blend runs where the tensors live: on CUDA tensors the kernels of
+``ops/csrc/``, on CPU tensors their plain PyTorch versions. ``render``
+moves its inputs to ``device`` first (a tensor already there is used as
+it is, so trainable leaves stay the leaves the optimizer holds); the
+default ``"cuda"`` raises when no card is present. It is differentiable
+with respect to the local point features, the decoders, the exposure and
+(theta, rho).
 """
 
 from __future__ import annotations
@@ -52,10 +55,31 @@ class RenderResult(NamedTuple):
     depth: torch.Tensor
     alpha: torch.Tensor
     normal: torch.Tensor
-    contrib: torch.Tensor      # per spawned gaussian (zeros: not ported)
+    contrib: torch.Tensor      # per spawned gaussian (local part only)
     gaussians: SpawnedGaussians
     n_overflow: torch.Tensor
     depth_median: Optional[torch.Tensor] = None  # surfel mode
+
+
+def downsample_cam(cam: CamView, level: int) -> CamView:
+    """Image-pyramid level of a CamView: rgb by 2x2-box averaging, depth
+    and sky by nearest sample, intrinsics halved per level."""
+    if level <= 0:
+        return cam
+    f = 1 << level
+    h, w = cam.rgb.shape[:2]
+    h2, w2 = h // f, w // f
+    rgb = cam.rgb[:h2 * f, :w2 * f].reshape(h2, f, w2, f, 3).mean((1, 3))
+    depth = cam.depth[::f, ::f][:h2, :w2]
+    sky = cam.sky[::f, ::f][:h2, :w2]
+    s = 1.0 / f
+    # pixel-centre convention: c' = (c + 0.5) / f - 0.5
+    K = cam.K.clone()
+    K[0, 0] *= s
+    K[1, 1] *= s
+    K[0, 2] = (cam.K[0, 2] + 0.5) * s - 0.5
+    K[1, 2] = (cam.K[1, 2] + 0.5) * s - 0.5
+    return cam._replace(K=K, rgb=rgb, depth=depth, sky=sky)
 
 
 def init_exposure(device: str | torch.device = "cuda") -> ExposureParams:
@@ -126,19 +150,25 @@ def render(
     normalize_depth: bool = True,
     gs_type: str = "3d_gs",
     precision: str = "high",
+    with_contrib: bool = False,
     raster_bins: Optional[rz.TileBins] = None,
     return_bins: bool = False,
+    bin_means: Optional[torch.Tensor] = None,
+    rebin_drift_px: float = 0.0,
     device: str | torch.device = "cuda",
     stage_hook: Optional[rb.StageHook] = None,
 ):
-    """Spawn + rasterize + exposure, forward only.
+    """Spawn + rasterize + exposure.
 
     ``gs_type``: "3d_gs" or "gaussian_surfel"; "2d_gs" is not ported yet.
     ``precision`` is accepted for call compatibility and has no effect:
     the port always blends in float32 (the JAX package's "fast" is a TPU
-    bf16 matmul mode). ``raster_bins`` reuses a tile table;
-    ``return_bins=True`` also returns (bins, means2d). ``stage_hook`` is
-    called after each stage of the path (``raster_blend.StageHook``)."""
+    bf16 matmul mode). ``with_contrib`` fills ``contrib``. ``raster_bins``
+    reuses a tile table; with ``bin_means`` and ``rebin_drift_px`` > 0 the
+    table is rebuilt when the projected centres have drifted past the
+    threshold; ``return_bins=True`` also returns (bins, the centres they
+    were built from). ``stage_hook`` is called after each stage of the
+    path (``raster_blend.StageHook``)."""
     del precision
     mode = _MODES.get(gs_type)
     if mode is None:
@@ -177,8 +207,10 @@ def render(
     r = rb.rasterize_fused(
         means, quats, scales, alphas, colors, valid, T_c_w, K, width,
         height, bg=bg, tile=tile, max_per_tile=max_per_tile,
-        normalize_depth=normalize_depth, mode=mode, bins=raster_bins,
-        return_bins=return_bins, stage_hook=stage_hook)
+        normalize_depth=normalize_depth, mode=mode,
+        with_contrib=with_contrib, bins=raster_bins,
+        return_bins=return_bins, bin_means=bin_means,
+        rebin_drift_px=rebin_drift_px, stage_hook=stage_hook)
     out, bins_out, means2d = r if return_bins else (r, None, None)
     rgb = out.rgb
     if exposure is not None:

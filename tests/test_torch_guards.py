@@ -32,6 +32,11 @@ def test_port_imports_neither_jax_nor_pings_tpu():
     what the interpreter had loaded before the first import)."""
     mods = _modules()
     assert "pings_tpu_torch.ops.raster_blend" in mods
+    for new in ("ops.ssim", "mapping.losses", "mapping.gs_mapper",
+                "mapping.sdf_mapper", "mapping.sampler", "mapping.pool",
+                "mapping.campool", "models.field", "data.frame",
+                "data.synthetic"):
+        assert "pings_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             "before = set(sys.modules)\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -43,6 +48,25 @@ def test_port_imports_neither_jax_nor_pings_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
+    """chip_smoke.py names no module of jax or pings_tpu in an import
+    (read from its syntax tree: the script itself needs a card to run)."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert any(n.startswith("pings_tpu_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                   "optax", "pings_tpu")]
+    assert not bad, bad
 
 
 def _no_card():
@@ -78,6 +102,27 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_training_entry_points_default_to_cuda():
+    _no_card()
+    from pings_tpu_torch.config import Config
+    from pings_tpu_torch.inspect_map import refine_view_pose
+    from pings_tpu_torch.mapping.campool import CamPool
+    from pings_tpu_torch.mapping.gs_mapper import gs_state_from_jax
+    from pings_tpu_torch.mapping.pool import init_pool, pool_from_jax
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_pool(16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pool_from_jax({})
+    with pytest.raises(RuntimeError, match="cuda"):
+        CamPool(Config()).init_param_pools()
+    with pytest.raises(RuntimeError, match="cuda"):
+        gs_state_from_jax(Config(), None, None, {}, {}, {}, {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        refine_view_pose(Config(), None, None, None, 8, 8)
+    assert init_pool(16, device="cpu").capacity == 16
+
+
 def test_render_raises_without_a_card():
     _no_card()
     from pings_tpu_torch.models.renderer import CamView, render
@@ -104,6 +149,35 @@ def test_blend_fwd_refuses_other_devices():
                     None)
     with pytest.raises(ValueError, match="cuda or cpu"):
         rb.blend_fwd(a, bins, 1, 1, 16, "surfel")
+
+
+@pytest.mark.parametrize("which", ["bwd", "contrib"])
+def test_new_wrappers_refuse_other_devices(which):
+    from pings_tpu_torch.ops import raster_blend as rb
+    from pings_tpu_torch.ops.rasterize import TileBins
+
+    a = torch.zeros(4, 16, device="meta")
+    bins = TileBins(torch.zeros(1, 8, dtype=torch.int32, device="meta"),
+                    torch.zeros(1, 8, dtype=torch.bool, device="meta"),
+                    torch.zeros(1, dtype=torch.int32, device="meta"), None)
+    z = lambda r: torch.zeros(1, r, 256, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        if which == "bwd":
+            rb.blend_bwd(a, bins, z(8), z(1), z(1), z(1), 1, 1, 16, "surfel")
+        else:
+            rb.blend_contrib(a, bins, 1, 1, 16, "3dgs")
+    assert not any(rb.BWD_LAUNCHES.values())
+    assert not any(rb.CONTRIB_LAUNCHES.values())
+
+
+def test_build_lists_every_kernel_source():
+    from pings_tpu_torch.ops import _build
+
+    srcs = sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                  if f.endswith(".cu"))
+    assert srcs == sorted(_build.KERNELS) == ["blend_bwd", "blend_contrib",
+                                              "blend_fwd"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
 def test_inspect_map_renders_pngs_on_cpu(tmp_path):
