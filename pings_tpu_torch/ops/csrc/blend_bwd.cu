@@ -7,8 +7,7 @@
 // _unpack_grads (:171) that follows them. It computes what they compute,
 // in float32: one front-to-back pass that carries the transmittance T and
 // the running sum sigma = sum_j w_j phi_j and uses the suffix identity
-//   dL/da_i = phi_i T_i - (rho - sigma_i) / max(1 - a_i, 1e-3)
-//             - g_T T_final / max(1 - a_i, 1e-3)
+//   dL/da_i = phi_i T_i - (rho - sigma_i + g_T T_final) / max(1 - a_i, 1e-3)
 // with phi_i = sum_c g_c attr_c (3dgs: c < 8; surfel: c < 6, plus
 // g_6 z + g_7 for the plane-depth and alpha rows), rho = sum_c g_c O_c and
 // T_final from the saved forward outputs. da is zero where alpha is zero;
@@ -23,237 +22,353 @@
 // pixel of the tile has T > 1e-4, so forward and backward stop at the same
 // slot; the slots it skips get no gradient.
 //
-// Design. One block per tile, one thread per pixel, `ch` slots staged at a
-// time into shared memory through gauss_tbl as the forward kernel does.
-// Each thread forms its pixel's 16 column terms for a slot; a warp that
-// holds no pixel with alpha > 0 skips the slot, otherwise it reduces the
-// terms with shuffles and lane 0 stores the warp's partial row. After the
-// chunk the block sums the warps' partials in a fixed order and adds each
-// non-zero row into d_attr16 (N, 16) with atomicAdd: no (T, Kmax, 16)
-// table goes through device memory and no second kernel reduces it. The
-// sum within a tile is deterministic; the order in which the tiles that
-// share a Gaussian add to its row is not, so two runs differ by float32
-// rounding of that last sum.
+// What bounds it. As the forward (see blend_fwd.cu for the rates): fp32
+// issue, not bytes and not matrix work. A slot-pixel with alpha > 0 costs
+// the gate, about 55 more instructions and one division; a slot with a
+// hit needs its 15 (3dgs: 14) column terms summed over the tile's pixels;
+// the bytes are the referenced rows, the table, 11 floats per pixel of
+// cotangents and saved maps and 64 bytes of atomics per slot with a hit.
+// Tensor cores and wgmma are not used: everything up to alpha, T and z
+// must round as in the forward kernel and the plain version (both kernels
+// must agree on which slot-pixels are active and where a block stops), and
+// a TF32 or bf16 product would flip the gates q < 9, alpha >= 1/255 and
+// s > 1e-6. That part, with phi and sigma (whose difference from rho
+// cancels), keeps separate multiplies and adds (-fmad=false) in the order
+// of raster_blend.blend_bwd_ref; the gradient terms after it are held by a
+// tolerance and use explicit fused multiply-adds.
 //
-// Operations are written in the order of raster_blend.blend_bwd_ref and
-// the library is built with -fmad=false, so the per-pixel terms round as
-// the plain version's do; only the order of the sums over pixels differs.
-//
-// Bound on an H100 SXM (see blend_fwd.cu for the rates: 33.5 T/s plain
-// fp32 instructions without FMA contraction, 1/8 of that for expf, 1/s and
-// the divisions, 3.35 TB/s). Every evaluated slot-pixel costs the forward
-// gate (about 24 instructions in surfel mode, 16 in 3dgs, and expf, 1/s);
-// where alpha > 0 it adds 62 (surfel) or 57 (3dgs) instructions and two
-// divisions for da and the column terms; reducing a slot with a hit over
-// its 256 pixels needs 256 adds per column (15 or 14 columns). Bytes: the
-// referenced attr16 rows, the table, the four cotangent and saved maps
-// (11 floats per pixel), and 64 bytes of atomics per slot with a hit.
-// At the kitti checkpoint's 640x240 (T = 600, Kmax = 128) the first view's
-// table needs 0.47 G instructions (14 us) against 8.4 MB (2.5 us): bound
-// by operations, as the forward. chip_smoke.py counts both from each
-// run's data. What the design does about it: it skips all gradient
-// arithmetic and the reduction where a whole warp has alpha = 0, keeps
-// every operand in registers or shared memory, and reads each slot row
-// once per tile. What it does not do yet: reduce 16 columns with fewer
-// shuffles (a transposing butterfly needs 31 instead of 80), or overlap
-// the next chunk's gather with this chunk's arithmetic.
+// What the design does about it (one block per tile, one thread per pixel,
+// 32 slots staged at a time as in the forward kernel).
+// - Cull before the gate, as the forward kernel: a warp owns an 8 x 4
+//   block of pixels, lane j tests whether slot j can reach the warp's
+//   rectangle, one ballot per chunk gives the slots the warp walks. A
+//   walked slot without a hit in the warp is dropped after the gate.
+// - The 16 column terms of a warp's 32 pixels are summed by a transposing
+//   butterfly: four steps in which a lane keeps half of its values and adds
+//   its partner's (8 + 4 + 2 + 1 shuffles) and one last exchange, 16
+//   shuffles and 30 selects where a tree per column takes 75 shuffles. This
+//   is the largest gain (1.7x on the whole kernel). Lane c then holds
+//   column c's sum, and lanes 0-15 store the warp's row as one 64-byte
+//   write.
+// - The warps' rows of a chunk are summed in warp order (deterministic
+//   within a tile) while the next chunk is blended (partial rows, ids and
+//   hit masks are double buffered), and added into d_attr16 (N, 16) with
+//   four float4 atomics per slot with a hit: no (T, Kmax, 16) table goes
+//   through device memory and no second kernel reduces it. The order in
+//   which tiles that share a Gaussian add to its row varies, so two runs
+//   differ by float32 rounding of that last sum. (float4 atomics measured
+//   the same as 15 scalar ones: the atomics are not what the kernel waits
+//   for.)
+// - The gates of two slots are worked out together before the slots are
+//   taken in order: they do not depend on T, so their chains overlap.
+// - One division per hit: both quotients of the identity share a divisor.
+// - Staging and tile order as the forward kernel; cp.async staging and
+//   blocks that draw tiles from a counter measured no better or worse.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int NCH = 16;   // attribute columns per Gaussian
-constexpr int NOUT = 8;   // blended output rows
-constexpr int CH = 32;    // most slots staged per chunk
+using namespace blend;
 
+// Sum v[0..15] over the 32 lanes of a warp; lane l returns column l & 15.
+// Step `bit` pairs lane l with l ^ bit: the lane whose bit is clear keeps
+// the lower half of its columns and sends the upper half, its partner the
+// reverse, and each adds what it receives; after bits 8, 4, 2, 1 one
+// column is left per lane and the exchange with l ^ 16 completes it.
+template <int HALF>
+__device__ __forceinline__ void transpose_step(float (&v)[NCH], int wl) {
+  const bool up = (wl & HALF) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF];
+    const float keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+  }
+}
+
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[NCH], int wl) {
+#ifndef BLEND_TREE_REDUCE
+  transpose_step<8>(v, wl);
+  transpose_step<4>(v, wl);
+  transpose_step<2>(v, wl);
+  transpose_step<1>(v, wl);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+#else
+  // measurement only: one five-step tree per column
+  float mine = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    float x = v[c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x = x + __shfl_xor_sync(0xffffffffu, x, off);
+    if ((wl & 15) == c) mine = x;
+  }
+  return mine;
+#endif
+}
+
+#ifndef BLEND_BATCH
+#define BLEND_BATCH 2
+#endif
+
+// One tile, by the whole block. `smem`: rows [ch][RS], partial rows
+// [2][NW][ch][NCH], ids [2][ch], hit masks [2][NW].
 template <bool SURFEL>
-__global__ void blend_bwd_kernel(const float* __restrict__ attr16,
-                                 const int* __restrict__ gauss_tbl,
-                                 const int* __restrict__ counts,
-                                 const float* __restrict__ g_out,
-                                 const float* __restrict__ g_trans,
-                                 const float* __restrict__ rho_in,
-                                 const float* __restrict__ trans_final,
-                                 float* __restrict__ d_attr16,
-                                 int n, int kmax, int ntx, int tile, int sb,
-                                 int ch) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void blend_bwd_tile(
+    int t, float* smem, const float* __restrict__ attr16,
+    const int* __restrict__ gauss_tbl, const int* __restrict__ counts,
+    const float* __restrict__ g_out, const float* __restrict__ g_trans,
+    const float* __restrict__ rho_in, const float* __restrict__ trans_final,
+    float* __restrict__ d_attr16, int n, int kmax, int ntx, int tile, int sb,
+    int ch) {
   const int P = blockDim.x;
-  const int NW = P / 32;
-  float* rows = smem;                          // ch * NCH
-  float* part = rows + ch * NCH;               // ch * NW * NCH
-  int* gid = (int*)(part + ch * NW * NCH);     // ch
-  int* hit = gid + ch;                         // ch * NW: warp had a hit
-
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int warp = lane >> 5;
-  const int wl = lane & 31;
-  const float px = (float)((t % ntx) * tile + lane % tile) + 0.5f;
-  const float py = (float)((t / ntx) * tile + lane / tile) + 0.5f;
+  const int NW = P >> 5;
+  float* rows = smem;
+  float* part = rows + ch * RS;
+  int* gid = (int*)(part + 2 * NW * ch * NCH);
+  unsigned* hitm = (unsigned*)(gid + 2 * ch);   // slots of the chunk that
+                                                // the warp hit, one bit each
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  const Pixels pp = block_pixels(t, ntx, tile);
+  const float px = pp.px, py = pp.py;
   // constants rounded from double as PyTorch rounds a Python float
-  const float alpha_floor = (float)(1.0 / 255.0);
   const float alpha_max = (float)0.999;
   const float trans_eps = (float)1e-4;
-  const float s_min = (float)1e-6;
   const float om_min = (float)1e-3;
 
   constexpr int MX = SURFEL ? 6 : 8;
   constexpr int MY = MX + 1, CA = MX + 2, CB = MX + 3, CC = MX + 4;
   constexpr int OP = MX + 5;
   constexpr int NBLEND = SURFEL ? 6 : NOUT;   // columns blended as they are
-  constexpr int NCOL = SURFEL ? 15 : 14;      // columns with a gradient
 
   float g[NOUT];
-  const size_t gbase = (size_t)t * NOUT * P + lane;
+  const size_t gbase = (size_t)t * NOUT * P + pp.pix;
 #pragma unroll
   for (int c = 0; c < NOUT; ++c) g[c] = g_out[gbase + (size_t)c * P];
-  const float gt = g_trans[(size_t)t * P + lane];
-  const float rho = rho_in[(size_t)t * P + lane];
-  const float tf = trans_final[(size_t)t * P + lane];
+  const float rho = rho_in[(size_t)t * P + pp.pix];
+  const float gtf = g_trans[(size_t)t * P + pp.pix]
+                    * trans_final[(size_t)t * P + pp.pix];
 
   const int cnt = min(counts[t], kmax);
   const int* tbl = gauss_tbl + (size_t)t * kmax;
+  int id = (tid < ch * 4 && (tid >> 2) < cnt) ? tbl[tid >> 2] : 0;
   float T = 1.f;
   float sigma = 0.f;
+  int pend_rows = 0, pend_buf = 0;   // a chunk whose partial rows wait
 
-  for (int k0 = 0; k0 < cnt; k0 += ch) {
-    // barrier: the previous chunk's rows and partials are consumed
+  // the block's sum of a chunk's partial rows over its warps, in warp
+  // order, and one float4 atomic per quarter row of a slot with a hit
+  auto flush = [&](int b, int nr) {
+    for (int i = tid; i < nr * 4; i += P) {
+      const int j = i >> 2, c4 = i & 3;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int wp = 0; wp < NW; ++wp) {
+        if ((hitm[b * NW + wp] >> j) & 1u) {
+          const float4 p = *(const float4*)(
+              part + ((size_t)(b * NW + wp) * ch + j) * NCH + c4 * 4);
+          a.x = a.x + p.x; a.y = a.y + p.y;
+          a.z = a.z + p.z; a.w = a.w + p.w;
+        }
+      }
+      if (a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f) {
+        float* dst = d_attr16 + (size_t)gid[b * ch + j] * NCH + c4 * 4;
+#ifndef BLEND_SCALAR_ATOMICS
+        atomicAdd((float4*)dst, a);
+#else
+        // measurement only: one atomic per non-zero column
+        if (a.x != 0.f) atomicAdd(dst, a.x);
+        if (a.y != 0.f) atomicAdd(dst + 1, a.y);
+        if (a.z != 0.f) atomicAdd(dst + 2, a.z);
+        if (a.w != 0.f) atomicAdd(dst + 3, a.w);
+#endif
+      }
+    }
+  };
+
+  for (int k0 = 0, c = 0; k0 < cnt; k0 += ch, ++c) {
+    const int b = c & 1;
+    // barrier: the previous chunk's rows are consumed before the reload,
+    // and its partial rows are stored
     if (k0 % sb == 0) {
       if (!__syncthreads_or(T > trans_eps)) break;
     } else {
       __syncthreads();
     }
+    // the ids go where the previous chunk but one had its own: that
+    // chunk's flush ended before the barrier above
+    const int gi = stage_chunk(rows, attr16, tbl, k0, ch, cnt, n, id);
+    if (tid < ch * 4 && (tid & 3) == 0) gid[b * ch + (tid >> 2)] = gi;
+    __syncthreads();
+    // the previous chunk's partial rows, while the warps blend this one
+    if (pend_rows) flush(pend_buf, pend_rows);
     const int nrows = min(ch, cnt - k0);
-    for (int i = lane; i < nrows * NCH; i += P) {
-      const int gi = max(0, min(tbl[k0 + i / NCH], n - 1));
-      rows[i] = attr16[(size_t)gi * NCH + i % NCH];
-      if (i % NCH == 0) gid[i / NCH] = gi;
-    }
-    __syncthreads();
+    unsigned live = chunk_live<SURFEL>(rows, nrows, pp);
+    unsigned hits = 0u;
+    float* wpart = part + (size_t)(b * NW + warp) * ch * NCH;
 
-    for (int j = 0; j < nrows; ++j) {
-      const float* s = rows + j * NCH;
-      const float dx = px - s[MX];
-      const float dy = py - s[MY];
-      const float q = s[CA] * dx * dx + s[CC] * dy * dy
-                      + 2.0f * s[CB] * dx * dy;
-      const float e = expf(-0.5f * q);
-      float araw = s[OP] * e;
-      if (!(q < 9.0f && araw >= alpha_floor)) araw = 0.f;
-      float alpha = fminf(araw, alpha_max);
-      const bool unclamped = araw < alpha_max;
-      float z = 0.f;
-      if (SURFEL) {
-        const float sd = s[12] * px + s[13] * py + s[14];
-        const bool z_ok = sd > s_min && sd < 100.0f;
-        z = z_ok ? 1.0f / sd : 0.f;
-        if (!z_ok) alpha = 0.f;
-      }
-      const bool active = alpha > 0.f;
-      const unsigned any = __ballot_sync(0xffffffffu, active);
-      if (any == 0u) {
-        if (wl == 0) hit[j * NW + warp] = 0;
-        continue;
-      }
-      float v[NCH];
+    while (live) {
+      // the gates of BLEND_BATCH slots together (they do not depend on T,
+      // so their long chains overlap), then the slots in order
+      int js[BLEND_BATCH];
+      Gate gt[BLEND_BATCH];
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) v[c] = 0.f;
-      if (active) {
-        const float one_m = 1.0f - alpha;
-        const float one_m_safe = fmaxf(one_m, om_min);
-        const float w = alpha * T;
-        float phi = s[0] * g[0];
-#pragma unroll
-        for (int c = 1; c < NBLEND; ++c) phi = phi + s[c] * g[c];
-        if (SURFEL) phi = phi + g[6] * z + g[7];
-        const float sigma_i = sigma + w * phi;
-        const float da = phi * T - (rho - sigma_i) / one_m_safe
-                         - gt * tf / one_m_safe;
-        const float dq = unclamped ? -0.5f * alpha * da : 0.f;
-        const float dexp = unclamped ? e * da : 0.f;
-#pragma unroll
-        for (int c = 0; c < NBLEND; ++c) v[c] = w * g[c];
-        v[MX] = dq * (-2.0f * s[CA] * dx - 2.0f * s[CB] * dy);
-        v[MY] = dq * (-2.0f * s[CC] * dy - 2.0f * s[CB] * dx);
-        v[CA] = dq * dx * dx;
-        v[CB] = 2.0f * dq * dx * dy;
-        v[CC] = dq * dy * dy;
-        v[OP] = dexp;
-        if (SURFEL) {
-          const float ds = -(z * z) * g[6] * w;
-          v[12] = ds * px;
-          v[13] = ds * py;
-          v[14] = ds;
-        }
-        sigma = sigma_i;
-        T = T * one_m;
+      for (int i = 0; i < BLEND_BATCH; ++i) {
+        js[i] = __ffs(live) - 1;          // -1 once the list is empty
+        live &= live - 1;
       }
 #pragma unroll
-      for (int c = 0; c < NCOL; ++c) {
-        float x = v[c];
+      for (int i = 0; i < BLEND_BATCH; ++i)
+        gt[i] = slot_gate<SURFEL>(rows + max(js[i], 0) * RS, px, py);
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          x = x + __shfl_down_sync(0xffffffffu, x, off);
-        v[c] = x;
-      }
-      if (wl == 0) {
-        hit[j * NW + warp] = 1;
-        float* dst = part + (j * NW + warp) * NCH;
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c) dst[c] = v[c];
-      }
-    }
-    __syncthreads();
+      for (int i = 0; i < BLEND_BATCH; ++i) {
+        const int j = js[i];
+        if (j < 0) break;
+        const float alpha = gt[i].alpha, e = gt[i].e;
+        const bool active = alpha > 0.f;
+        if (__ballot_sync(0xffffffffu, active) == 0u) continue;
 
-    // the block's sum over its warps, in warp order, then one atomic per
-    // column of every slot that had a hit
-    for (int i = lane; i < nrows * NCH; i += P) {
-      const int j = i / NCH, c = i % NCH;
-      if (c >= NCOL) continue;
-      float acc = 0.f;
-      bool any_hit = false;
-      for (int wp = 0; wp < NW; ++wp) {
-        if (hit[j * NW + wp]) {
-          acc = acc + part[(j * NW + wp) * NCH + c];
-          any_hit = true;
+        float v[NCH];
+#pragma unroll
+        for (int c2 = 0; c2 < NCH; ++c2) v[c2] = 0.f;
+        if (active) {
+          float s[NCH];
+          const float4* r = (const float4*)(rows + j * RS);
+#pragma unroll
+          for (int c2 = 0; c2 < 4; ++c2) {
+            const float4 v4 = r[c2];
+            s[4 * c2] = v4.x; s[4 * c2 + 1] = v4.y;
+            s[4 * c2 + 2] = v4.z; s[4 * c2 + 3] = v4.w;
+          }
+          const float dx = px - s[MX];
+          const float dy = py - s[MY];
+          const float z = SURFEL ? 1.0f / gt[i].s : 0.f;
+          const bool unclamped = alpha < alpha_max;
+          const float one_m = 1.0f - alpha;
+          const float one_m_safe = fmaxf(one_m, om_min);
+          const float w = alpha * T;
+          float phi = s[0] * g[0];
+#pragma unroll
+          for (int c2 = 1; c2 < NBLEND; ++c2) phi = phi + s[c2] * g[c2];
+          if (SURFEL) phi = phi + g[6] * z + g[7];
+          // phi and sigma round as the plain version's: rho - sigma_i
+          // cancels, and a last-bit difference would come back magnified
+          const float sigma_i = sigma + w * phi;
+          const float da = __fmaf_rn(
+              phi, T, -(((rho - sigma_i) + gtf) / one_m_safe));
+          const float dq = unclamped ? -0.5f * alpha * da : 0.f;
+#pragma unroll
+          for (int c2 = 0; c2 < NBLEND; ++c2) v[c2] = w * g[c2];
+          const float m2dq = -2.0f * dq;
+          v[MX] = m2dq * __fmaf_rn(s[CA], dx, s[CB] * dy);
+          v[MY] = m2dq * __fmaf_rn(s[CC], dy, s[CB] * dx);
+          const float dqdx = dq * dx;
+          v[CA] = dqdx * dx;
+          v[CB] = 2.0f * dqdx * dy;
+          v[CC] = dq * dy * dy;
+          v[OP] = unclamped ? e * da : 0.f;
+          if (SURFEL) {
+            const float ds = -(z * z) * g[6] * w;
+            v[12] = ds * px;
+            v[13] = ds * py;
+            v[14] = ds;
+          }
+          sigma = sigma_i;
+          T = T * one_m;      // as the forward kernel rounds it
         }
+        const float mine = warp_transpose_sum(v, wl);
+        if (wl < NCH) wpart[j * NCH + wl] = mine;
+        hits |= 1u << j;
       }
-      if (any_hit && acc != 0.f)
-        atomicAdd(d_attr16 + (size_t)gid[j] * NCH + c, acc);
     }
+    if (wl == 0) hitm[b * NW + warp] = hits;
+    pend_rows = nrows;
+    pend_buf = b;
   }
+
+  __syncthreads();
+  if (pend_rows) flush(pend_buf, pend_rows);
 }
 
-// the largest chunk (a power of two, at most CH and sb) whose shared
-// memory fits the 48 KB a block gets without opting in
-int chunk_for(int P, int sb, size_t* bytes) {
-  const int NW = P / 32;
-  int ch = sb < CH ? sb : CH;
-  for (;;) {
-    *bytes = (size_t)ch * NCH * 4 + (size_t)ch * NW * NCH * 4
-             + (size_t)ch * 4 + (size_t)ch * NW * 4;
-    if (*bytes <= 48 * 1024 || ch == 1) return ch;
-    ch /= 2;
-  }
+template <bool SURFEL, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+blend_bwd_kernel(const float* __restrict__ attr16,
+                 const int* __restrict__ gauss_tbl,
+                 const int* __restrict__ counts,
+                 const float* __restrict__ g_out,
+                 const float* __restrict__ g_trans,
+                 const float* __restrict__ rho_in,
+                 const float* __restrict__ trans_final,
+                 float* __restrict__ d_attr16,
+                 const int* __restrict__ order, int n, int kmax, int ntx,
+                 int tile, int sb, int ch) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = order != nullptr ? order[blockIdx.x] : blockIdx.x;
+  blend_bwd_tile<SURFEL>(t, smem, attr16, gauss_tbl, counts, g_out, g_trans,
+                         rho_in, trans_final, d_attr16, n, kmax, ntx, tile,
+                         sb, ch);
 }
 
+template <bool SURFEL, int MAXT>
+int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
+              const void* g_out, const void* g_trans, const void* rho,
+              const void* trans_final, void* d_attr16, void* sched, int n,
+              int T, int kmax, int ntx, int tile, int sb, int ch,
+              size_t bytes, cudaStream_t stream) {
+  auto kernel = blend_bwd_kernel<SURFEL, MAXT>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one answer per instantiation and block shape (the cards of a host
+  // are taken to be alike)
+  static int resident = 0;
+  static size_t resident_for = (size_t)-1;
+  const size_t shape = bytes * 2048 + (size_t)(tile * tile);
+  if (resident_for != shape) {
+    resident = resident_blocks(kernel, tile * tile, bytes);
+    resident_for = shape;
+  }
+  const int* order = nullptr;
+  const int rc = plan_tiles(resident, counts, T, kmax, sched, stream, &order);
+  if (rc != 0) return rc;
+  kernel<<<T, tile * tile, bytes, stream>>>(
+      (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
+      (const float*)g_out, (const float*)g_trans, (const float*)rho,
+      (const float*)trans_final, (float*)d_attr16, order, n, kmax, ntx, tile,
+      sb, ch);
+  return (int)cudaGetLastError();
+}
+
+// `sched` is scratch for T ints (see blend_common.cuh: plan_tiles).
 template <bool SURFEL>
 int launch(const void* attr16, const void* gauss_tbl, const void* counts,
            const void* g_out, const void* g_trans, const void* rho,
            const void* trans_final, void* d_attr16, int n, int T, int kmax,
-           int ntx, int tile, int sb, void* stream) {
+           int ntx, int tile, int sb, void* stream, void* sched) {
   const int P = tile * tile;
-  size_t bytes = 0;
-  const int ch = chunk_for(P, sb, &bytes);
-  if (T > 0) {
-    blend_bwd_kernel<SURFEL><<<T, P, bytes, (cudaStream_t)stream>>>(
-        (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
-        (const float*)g_out, (const float*)g_trans, (const float*)rho,
-        (const float*)trans_final, (float*)d_attr16, n, kmax, ntx, tile, sb,
-        ch);
-  }
-  return (int)cudaGetLastError();
+  const int NW = P / 32;
+  // a chunk: at most one slot per lane, one superblock, and one 16-byte
+  // copy per thread (sb is a power of two >= 8, P / 4 >= 16)
+  const int ch = min(min(CH, sb), P / 4);
+  const size_t bytes = (size_t)ch * RS * sizeof(float)
+                       + (size_t)2 * NW * ch * NCH * sizeof(float)
+                       + (size_t)2 * ch * sizeof(int)
+                       + (size_t)2 * NW * sizeof(unsigned);
+  if (T <= 0) return 0;
+  if (P <= 256)
+    return launch_as<SURFEL, 256>(attr16, gauss_tbl, counts, g_out, g_trans,
+                                  rho, trans_final, d_attr16, sched, n, T,
+                                  kmax, ntx, tile, sb, ch, bytes,
+                                  (cudaStream_t)stream);
+  return launch_as<SURFEL, 1024>(attr16, gauss_tbl, counts, g_out, g_trans,
+                                 rho, trans_final, d_attr16, sched, n, T,
+                                 kmax, ntx, tile, sb, ch, bytes,
+                                 (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -263,10 +378,10 @@ extern "C" int blend_bwd_surfel(const void* attr16, const void* gauss_tbl,
                                 const void* g_trans, const void* rho,
                                 const void* trans_final, void* d_attr16,
                                 int n, int T, int kmax, int ntx, int tile,
-                                int sb, void* stream) {
+                                int sb, void* stream, void* sched) {
   return launch<true>(attr16, gauss_tbl, counts, g_out, g_trans, rho,
                       trans_final, d_attr16, n, T, kmax, ntx, tile, sb,
-                      stream);
+                      stream, sched);
 }
 
 extern "C" int blend_bwd_3dgs(const void* attr16, const void* gauss_tbl,
@@ -274,8 +389,8 @@ extern "C" int blend_bwd_3dgs(const void* attr16, const void* gauss_tbl,
                               const void* g_trans, const void* rho,
                               const void* trans_final, void* d_attr16,
                               int n, int T, int kmax, int ntx, int tile,
-                              int sb, void* stream) {
+                              int sb, void* stream, void* sched) {
   return launch<false>(attr16, gauss_tbl, counts, g_out, g_trans, rho,
                        trans_final, d_attr16, n, T, kmax, ntx, tile, sb,
-                       stream);
+                       stream, sched);
 }

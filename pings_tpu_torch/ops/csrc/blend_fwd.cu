@@ -1,4 +1,4 @@
-// Forward alpha blend of depth-sorted Gaussians per 16x16 image tile.
+// Forward alpha blend of depth-sorted Gaussians per image tile.
 //
 // Replaces the Pallas TPU kernels of pings_tpu/ops/raster_pallas.py:
 //   SURFEL = true   _fwd_kernel_surfel  (:377), launched by _blend_fwd_call
@@ -14,77 +14,76 @@
 //   3dgs:   rows 0-7 = sum w attr[0..7] (column 7 is the constant 1);
 // with w = alpha * T and T the running transmittance, front to back.
 // Attribute column layouts: pings_tpu/ops/raster_pallas.py:50-74.
+// The early stop follows the Pallas rule: at the start of every superblock
+// of `sb` slots the block stops once no pixel of the tile has T > 1e-4 (one
+// __syncthreads_or); no pixel stops on its own. Outputs use the Pallas
+// kernels' layout: out (T, 8, P), trans (T, 1, P), med (T, 1, P), P =
+// tile^2, row-major in the tile.
 //
-// Design. One block per tile, one thread per pixel (tile^2 = 256 threads).
-// The block stages 32 slots at a time into shared memory, gathering each
-// slot's 16-float row straight from the per-Gaussian table attr16 (N, 16)
-// through gauss_tbl[t, k]; no packed (T, Kmax, 16) table is written. Each
-// thread then blends its pixel sequentially over the staged slots. Slots
-// past counts[t] are never read. The early stop follows the Pallas rule:
-// at the start of every superblock of `sb` slots the block stops once no
-// pixel of the tile has T > 1e-4 (one __syncthreads_or); no pixel stops on
-// its own. Pixel centres are global: ((t % ntx) * tile + lane % tile + 0.5,
-// (t / ntx) * tile + lane / tile + 0.5). Outputs use the Pallas kernels'
-// layout: out (T, 8, P), trans (T, 1, P), med (T, 1, P), P = tile^2.
+// What bounds it. An H100 SXM issues 33.5 T plain fp32 lane instructions a
+// second (67 TFLOP/s counts an FMA as two; this file is built with
+// -fmad=false), an eighth of that for expf and 1/s, and moves 3.35 TB/s.
+// A slot-pixel costs the gate (about 24 instructions in surfel mode, 16 in
+// 3dgs, plus expf), and about 20 more and, in surfel mode, 1/s where
+// alpha > 0. The kitti checkpoint's first view (600 tiles x 128 slots,
+// 640x240) holds 9.7 M slot-pixels below the tiles' counts, of which 2.6 M
+// have alpha > 0: 0.29 G instructions against 6.5 MB, so the kernel is
+// bound by fp32 issue, not by bytes and not by matrix work (chip_smoke.py
+// counts both sides from each run's data). Tensor cores and wgmma are not
+// used: the gates (q < 9, alpha >= 1/255, s > 1e-6) make the blend
+// discontinuous, so q and s must be the plain version's float32 values bit
+// for bit, and a TF32 or bf16 product would flip gates. For the same
+// reason expf and 1/s stay the correctly rounded library versions and the
+// operations keep the order of raster_blend.blend_fwd_ref.
 //
-// The operations are written in the order of the plain PyTorch version
-// (raster_blend.blend_fwd_ref) and the library is built with -fmad=false,
-// so the gate tests round identically in both.
-//
-// Bound on an H100 SXM (67 TFLOP/s fp32 without tensor cores counts an FMA
-// as two; built with -fmad=false, every add, multiply, compare and select
-// is one lane instruction, 33.5 T/s; expf and 1/s go to the special-function
-// units, 1/8 of that rate; 3.35 TB/s). Each evaluated slot-pixel costs the
-// gate (about 24 fp32 instructions in surfel mode, 16 in 3dgs, plus expf
-// and, in surfel mode, 1/s); where alpha > 0 the blend adds about 20
-// (surfel) or 19 (3dgs). At most 600 * 128 * 256 = 19.7 M slot-pixels at
-// the kitti checkpoint's 640x240 (T = 600, Kmax = 128); its real first-view
-// table needs 9.7 M evaluated and 2.6 M blended, about 0.29 G fp32
-// instructions or 8.5 us, against 6.5 MB of bytes (the referenced attr16
-// rows, the table and the outputs) or 1.9 us. The replica checkpoint's
-// 1200x680 (T = 3,225) is about 7x that. So the kernel is bound by
-// operations (chip_smoke.py counts both sides from each run's data). The
-// design keeps every operand in registers or shared memory, reads each slot
-// row once per tile, and skips the blend arithmetic where alpha is zero.
-// What it does not do yet: overlap the next chunk's gather with the blend,
-// or balance the sequential per-pixel scan against the latency it exposes.
+// What the design does about it (one block per tile, one thread per pixel,
+// 32 slots staged at a time).
+// - Three quarters of the slot-pixels have alpha = 0, so slots are culled
+//   per warp before the gate: a warp owns an 8 x 4 block of pixels, and
+//   for each staged chunk lane j tests whether slot j can reach the warp's
+//   rectangle (blend_common.cuh: slot_outside, the least q over the
+//   rectangle against the cutoff, with margins that make it conservative);
+//   one ballot gives the slots the warp walks, and it reads no column of
+//   the others. At the kitti view 63% of the warp-slots go, of the 66%
+//   that hold no pixel with alpha > 0. The cull skips only where every
+//   lane's alpha is 0, so the result is unchanged.
+// - Rows are gathered from attr16 (N, 16) through gauss_tbl[t, k] (no
+//   packed (T, Kmax, 16) table exists) as 16-byte loads, one per thread,
+//   and read back as broadcast float4 loads; the id a thread needs for the
+//   next chunk is read while this one is blended. A two-stage ring filled
+//   with cp.async, one barrier per chunk, measured 4-7% slower than this
+//   (the tables sit in L2 and enough warps are resident to hide the
+//   loads), so it is not used; TMA does not fit a gather through an index
+//   table.
+// - 1/s is taken only where alpha > 0.
+// - Tiles that need two waves of blocks or more are taken longest first
+//   (blend_common.cuh: plan_tiles), so that short tiles fill the tail.
+//   Blocks that draw tiles from a counter measured slower at every table.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int NCH = 16;   // attribute columns per Gaussian
-constexpr int NOUT = 8;   // blended output rows
-constexpr int CH = 32;    // slots staged per chunk
+using namespace blend;
 
+// One tile, by the whole block.
 template <bool SURFEL>
-__global__ void blend_fwd_kernel(const float* __restrict__ attr16,
-                                 const int* __restrict__ gauss_tbl,
-                                 const int* __restrict__ counts,
-                                 float* __restrict__ out,
-                                 float* __restrict__ trans_out,
-                                 float* __restrict__ med_out,
-                                 int n, int kmax, int ntx, int tile, int sb,
-                                 int ch) {
-  __shared__ float rows[CH * NCH];
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x;
+__device__ __forceinline__ void blend_fwd_tile(
+    int t, float* rows, const float* __restrict__ attr16,
+    const int* __restrict__ gauss_tbl, const int* __restrict__ counts,
+    float* __restrict__ out, float* __restrict__ trans_out,
+    float* __restrict__ med_out, int n, int kmax, int ntx, int tile, int sb,
+    int ch) {
+  const int tid = threadIdx.x;
   const int P = blockDim.x;
-  const float px = (float)((t % ntx) * tile + lane % tile) + 0.5f;
-  const float py = (float)((t / ntx) * tile + lane / tile) + 0.5f;
-  // constants rounded from double as PyTorch rounds a Python float
-  const float alpha_floor = (float)(1.0 / 255.0);
-  const float alpha_max = (float)0.999;
-  const float trans_eps = (float)1e-4;
-  const float s_min = (float)1e-6;
-
-  // column indices: mu_x, mu_y, conic a, b, c, opacity
-  constexpr int MX = SURFEL ? 6 : 8;
-  constexpr int MY = MX + 1, CA = MX + 2, CB = MX + 3, CC = MX + 4;
-  constexpr int OP = MX + 5;
+  const Pixels pp = block_pixels(t, ntx, tile);
+  const float px = pp.px, py = pp.py;
+  const float trans_eps = (float)1e-4;   // rounded from double, as PyTorch
 
   const int cnt = min(counts[t], kmax);
   const int* tbl = gauss_tbl + (size_t)t * kmax;
+  int id = (tid < ch * 4 && (tid >> 2) < cnt) ? tbl[tid >> 2] : 0;
+
   float acc[NOUT];
 #pragma unroll
   for (int c = 0; c < NOUT; ++c) acc[c] = 0.f;
@@ -99,39 +98,32 @@ __global__ void blend_fwd_kernel(const float* __restrict__ attr16,
     } else {
       __syncthreads();
     }
-    const int nrows = min(ch, cnt - k0);
-    for (int i = lane; i < nrows * NCH; i += P) {
-      const int g = max(0, min(tbl[k0 + i / NCH], n - 1));
-      rows[i] = attr16[(size_t)g * NCH + i % NCH];
-    }
+    stage_chunk(rows, attr16, tbl, k0, ch, cnt, n, id);
     __syncthreads();
+    unsigned live = chunk_live<SURFEL>(rows, min(ch, cnt - k0), pp);
 
-    for (int j = 0; j < nrows; ++j) {
-      const float* s = rows + j * NCH;
-      const float dx = px - s[MX];
-      const float dy = py - s[MY];
-      const float q = s[CA] * dx * dx + s[CC] * dy * dy
-                      + 2.0f * s[CB] * dx * dy;
-      const float araw = s[OP] * expf(-0.5f * q);
-      float alpha = (q < 9.0f && araw >= alpha_floor)
-                        ? fminf(araw, alpha_max) : 0.f;
-      float z = 0.f;
-      if (SURFEL) {
-        const float sd = s[12] * px + s[13] * py + s[14];
-        const bool z_ok = sd > s_min && sd < 100.0f;
-        z = z_ok ? 1.0f / sd : 0.f;
-        if (!z_ok) alpha = 0.f;
-      }
+    while (live) {
+      const int j = __ffs(live) - 1;
+      live &= live - 1;
+      const Gate gt = slot_gate<SURFEL>(rows + j * RS, px, py);
+      const float alpha = gt.alpha;
       if (alpha > 0.f) {
+        const float4* r = (const float4*)(rows + j * RS);
+        const float4 r0 = r[0], r1 = r[1];
         const float w = alpha * T;
+        const float z = SURFEL ? 1.0f / gt.s : 0.f;
+        acc[0] = acc[0] + w * r0.x;
+        acc[1] = acc[1] + w * r0.y;
+        acc[2] = acc[2] + w * r0.z;
+        acc[3] = acc[3] + w * r0.w;
+        acc[4] = acc[4] + w * r1.x;
+        acc[5] = acc[5] + w * r1.y;
         if (SURFEL) {
-#pragma unroll
-          for (int c = 0; c < 6; ++c) acc[c] = acc[c] + w * s[c];
           acc[6] = acc[6] + w * z;
           acc[7] = acc[7] + w;
         } else {
-#pragma unroll
-          for (int c = 0; c < NOUT; ++c) acc[c] = acc[c] + w * s[c];
+          acc[6] = acc[6] + w * r1.z;
+          acc[7] = acc[7] + w * r1.w;
         }
         const float T_out = T * (1.0f - alpha);
         if (SURFEL && !med_set && T > 0.5f && T_out <= 0.5f) {
@@ -143,25 +135,75 @@ __global__ void blend_fwd_kernel(const float* __restrict__ attr16,
     }
   }
 
-  const size_t base = (size_t)t * NOUT * P + lane;
+  const size_t base = (size_t)t * NOUT * P + pp.pix;
 #pragma unroll
   for (int c = 0; c < NOUT; ++c) out[base + (size_t)c * P] = acc[c];
-  trans_out[(size_t)t * P + lane] = T;
-  if (SURFEL) med_out[(size_t)t * P + lane] = med;
+  trans_out[(size_t)t * P + pp.pix] = T;
+  if (SURFEL) med_out[(size_t)t * P + pp.pix] = med;
 }
 
+template <bool SURFEL, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+blend_fwd_kernel(const float* __restrict__ attr16,
+                 const int* __restrict__ gauss_tbl,
+                 const int* __restrict__ counts, float* __restrict__ out,
+                 float* __restrict__ trans_out, float* __restrict__ med_out,
+                 const int* __restrict__ order, int n, int kmax, int ntx,
+                 int tile, int sb, int ch) {
+  extern __shared__ __align__(16) float rows[];   // ch staged rows
+  const int t = order != nullptr ? order[blockIdx.x] : blockIdx.x;
+  blend_fwd_tile<SURFEL>(t, rows, attr16, gauss_tbl, counts, out, trans_out,
+                         med_out, n, kmax, ntx, tile, sb, ch);
+}
+
+template <bool SURFEL, int MAXT>
+int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
+              void* out, void* trans, void* med, void* sched, int n, int T,
+              int kmax, int ntx, int tile, int sb, int ch, size_t bytes,
+              cudaStream_t stream) {
+  auto kernel = blend_fwd_kernel<SURFEL, MAXT>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one answer per instantiation and block shape (the cards of a host
+  // are taken to be alike)
+  static int resident = 0;
+  static size_t resident_for = (size_t)-1;
+  const size_t shape = bytes * 2048 + (size_t)(tile * tile);
+  if (resident_for != shape) {
+    resident = resident_blocks(kernel, tile * tile, bytes);
+    resident_for = shape;
+  }
+  const int* order = nullptr;
+  const int rc = plan_tiles(resident, counts, T, kmax, sched, stream, &order);
+  if (rc != 0) return rc;
+  kernel<<<T, tile * tile, bytes, stream>>>(
+      (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
+      (float*)out, (float*)trans, (float*)med, order, n, kmax, ntx, tile,
+      sb, ch);
+  return (int)cudaGetLastError();
+}
+
+// `sched` is scratch for T ints (see blend_common.cuh: plan_tiles).
 template <bool SURFEL>
 int launch(const void* attr16, const void* gauss_tbl, const void* counts,
            void* out, void* trans, void* med, int n, int T, int kmax,
-           int ntx, int tile, int sb, void* stream) {
+           int ntx, int tile, int sb, void* stream, void* sched) {
   const int P = tile * tile;
-  const int ch = sb < CH ? sb : CH;
-  if (T > 0) {
-    blend_fwd_kernel<SURFEL><<<T, P, 0, (cudaStream_t)stream>>>(
-        (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
-        (float*)out, (float*)trans, (float*)med, n, kmax, ntx, tile, sb, ch);
-  }
-  return (int)cudaGetLastError();
+  // a chunk: at most one slot per lane, one superblock, and one 16-byte
+  // copy per thread (sb is a power of two >= 8, P / 4 >= 16)
+  const int ch = min(min(CH, sb), P / 4);
+  const size_t bytes = (size_t)ch * RS * sizeof(float);
+  if (T <= 0) return 0;
+  if (P <= 256)
+    return launch_as<SURFEL, 256>(attr16, gauss_tbl, counts, out, trans, med,
+                                  sched, n, T, kmax, ntx, tile, sb, ch, bytes,
+                                  (cudaStream_t)stream);
+  return launch_as<SURFEL, 1024>(attr16, gauss_tbl, counts, out, trans, med,
+                                 sched, n, T, kmax, ntx, tile, sb, ch, bytes,
+                                 (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -169,15 +211,15 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
 extern "C" int blend_fwd_surfel(const void* attr16, const void* gauss_tbl,
                                 const void* counts, void* out, void* trans,
                                 void* med, int n, int T, int kmax, int ntx,
-                                int tile, int sb, void* stream) {
+                                int tile, int sb, void* stream, void* sched) {
   return launch<true>(attr16, gauss_tbl, counts, out, trans, med, n, T,
-                      kmax, ntx, tile, sb, stream);
+                      kmax, ntx, tile, sb, stream, sched);
 }
 
 extern "C" int blend_fwd_3dgs(const void* attr16, const void* gauss_tbl,
                               const void* counts, void* out, void* trans,
                               int n, int T, int kmax, int ntx, int tile,
-                              int sb, void* stream) {
+                              int sb, void* stream, void* sched) {
   return launch<false>(attr16, gauss_tbl, counts, out, trans, nullptr, n, T,
-                       kmax, ntx, tile, sb, stream);
+                       kmax, ntx, tile, sb, stream, sched);
 }

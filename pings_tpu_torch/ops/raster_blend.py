@@ -16,6 +16,10 @@ Column layouts (per Gaussian, 16 float32):
   surfel: 0-2 rgb, 3-5 normal, 6-7 mu, 8-10 conic, 11 opacity,
           12-14 plane-depth basis (ndx, ndy, nd0), 15 pad
 
+``warp_culled`` is the plain version of the test by which a warp of the
+forward and backward kernels skips a slot whose Gaussian cannot reach its
+pixels, ``slot_extent`` the rectangle that holds every pixel it can reach.
+
 Each wrapper (``blend_fwd``, ``blend_bwd``, ``blend_contrib``) runs its
 CUDA kernel (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``,
 ``csrc/blend_contrib.cu``) on CUDA tensors and its plain version
@@ -25,7 +29,7 @@ are counted per kernel and mode in ``LAUNCHES``, ``BWD_LAUNCHES`` and
 ``CONTRIB_LAUNCHES``.
 
 The backward kernel adds each slot's 16 column gradients straight into
-the per-Gaussian (N, 16) result with float atomics (no (T, Kmax, 16)
+the per-Gaussian (N, 16) result with float4 atomics (no (T, Kmax, 16)
 table is written), so the order of the sum over the tiles a Gaussian
 touches varies from run to run; the plain version writes the per-slot
 table and reduces it with ``index_add_``.
@@ -151,9 +155,12 @@ def _check(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
                          "and at most 1024")
 
 
-def _cuda_inputs(name: str, attr16: torch.Tensor, bins: TileBins):
+def _cuda_inputs(name: str, attr16: torch.Tensor, bins: TileBins,
+                 align: int = 4):
     """The kernel-side checks of a wrapper called on CUDA tensors: the
-    tile table lies on the same card as int32, contiguous."""
+    tile table lies on the same card as int32, contiguous, and the
+    attribute rows start at a multiple of ``align`` bytes (16 for the
+    kernels that copy a row as four 16-byte pieces)."""
     dev = attr16.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
@@ -162,7 +169,11 @@ def _cuda_inputs(name: str, attr16: torch.Tensor, bins: TileBins):
                 or not x.is_contiguous():
             raise ValueError(f"{what} must be a contiguous int32 tensor on "
                              f"{dev}, got {x.dtype} on {x.device}")
-    return attr16.contiguous(), bins.gauss_tbl, bins.counts
+    attr16 = attr16.contiguous()
+    if attr16.data_ptr() % align:
+        raise ValueError(f"{name}: attr16 must start at a multiple of "
+                         f"{align} bytes, got address {attr16.data_ptr()}")
+    return attr16, bins.gauss_tbl, bins.counts
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -186,9 +197,11 @@ def _lib(name: str, argtypes: dict) -> ctypes.CDLL:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = {"blend_fwd_surfel": [_VP] * 6 + [_CI] * 6 + [_VP],
-             "blend_fwd_3dgs": [_VP] * 5 + [_CI] * 6 + [_VP]}
-_BWD_ARGS = {f"blend_bwd_{m}": [_VP] * 8 + [_CI] * 6 + [_VP] for m in MODES}
+# forward and backward end with the stream and T ints of scratch
+_FWD_ARGS = {"blend_fwd_surfel": [_VP] * 6 + [_CI] * 6 + [_VP] * 2,
+             "blend_fwd_3dgs": [_VP] * 5 + [_CI] * 6 + [_VP] * 2}
+_BWD_ARGS = {f"blend_bwd_{m}": [_VP] * 8 + [_CI] * 6 + [_VP] * 2
+             for m in MODES}
 _CONTRIB_ARGS = {f"blend_contrib_{m}": [_VP] * 5 + [_CI] * 6 + [_VP]
                  for m in MODES}
 
@@ -203,7 +216,7 @@ def blend_fwd(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
     dev = attr16.device
     if dev.type == "cpu":
         return blend_fwd_ref(attr16, bins, ntx, nty, tile, mode, sup)
-    attr16, tbl, counts = _cuda_inputs("blend_fwd", attr16, bins)
+    attr16, tbl, counts = _cuda_inputs("blend_fwd", attr16, bins, align=16)
     T, kmax = tbl.shape
     sb = superblock(kmax, sup)
     P = tile * tile
@@ -211,15 +224,17 @@ def blend_fwd(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
     trans = torch.empty((T, 1, P), dtype=torch.float32, device=dev)
     med = (torch.empty if mode == "surfel" else torch.zeros)(
         (T, 1, P), dtype=torch.float32, device=dev)
+    sched = torch.empty((T,), dtype=torch.int32, device=dev)   # scratch
     lib = _lib("blend_fwd", _FWD_ARGS)
     ints = [_CI(v) for v in (attr16.shape[0], T, kmax, ntx, tile, sb)]
     if mode == "surfel":
         rc = lib.blend_fwd_surfel(_ptr(attr16), _ptr(tbl), _ptr(counts),
                                   _ptr(out), _ptr(trans), _ptr(med), *ints,
-                                  _stream(dev))
+                                  _stream(dev), _ptr(sched))
     else:
         rc = lib.blend_fwd_3dgs(_ptr(attr16), _ptr(tbl), _ptr(counts),
-                                _ptr(out), _ptr(trans), *ints, _stream(dev))
+                                _ptr(out), _ptr(trans), *ints, _stream(dev),
+                                _ptr(sched))
     if rc != 0:
         raise RuntimeError(f"blend_fwd_{mode} launch failed: CUDA error {rc}")
     LAUNCHES[mode] += 1
@@ -259,16 +274,18 @@ def blend_bwd(attr16: torch.Tensor, bins: TileBins, g_out: torch.Tensor,
         dtable = blend_bwd_ref(attr16, bins, g_out, g_trans, rho,
                                trans_final, ntx, nty, tile, mode, sup)
         return unpack_grads(dtable, bins, n)
-    attr16, tbl, counts = _cuda_inputs("blend_bwd", attr16, bins)
+    attr16, tbl, counts = _cuda_inputs("blend_bwd", attr16, bins, align=16)
     sb = superblock(kmax, sup)
     d_attr16 = torch.zeros((n, NCH), dtype=torch.float32, device=dev)
+    sched = torch.empty((T,), dtype=torch.int32, device=dev)   # scratch
     lib = _lib("blend_bwd", _BWD_ARGS)
     ints = [_CI(v) for v in (n, T, kmax, ntx, tile, sb)]
     g_out, g_trans, rho, trans_final = (
         x.contiguous() for x in (g_out, g_trans, rho, trans_final))
     rc = getattr(lib, f"blend_bwd_{mode}")(
         _ptr(attr16), _ptr(tbl), _ptr(counts), _ptr(g_out), _ptr(g_trans),
-        _ptr(rho), _ptr(trans_final), _ptr(d_attr16), *ints, _stream(dev))
+        _ptr(rho), _ptr(trans_final), _ptr(d_attr16), *ints, _stream(dev),
+        _ptr(sched))
     if rc != 0:
         raise RuntimeError(f"blend_bwd_{mode} launch failed: CUDA error {rc}")
     BWD_LAUNCHES[mode] += 1
@@ -341,6 +358,85 @@ def slot_alpha(col, px: torch.Tensor, py: torch.Tensor, mode: str):
     """(alpha, z) of ``slot_terms``."""
     t = slot_terms(col, px, py, mode)
     return t[0], t[1]
+
+
+# the extent's margins, as csrc/blend_common.cuh has them
+DET_MIN = 1e-3          # least det / (A C) of a conic whose extent is used
+EXT_SCALE = 1.01        # widens the half-widths (2% in q)
+EXT_PIXELS = 1.0        # and by this many pixels
+EXT_LOG_SLACK = 0.01    # added to 2 ln(255 opa)
+WARP_W, WARP_H = 8, 4   # the block of pixels a warp of the kernels owns
+
+
+def slot_extent(rows: torch.Tensor, mode: str) -> torch.Tensor:
+    """(..., 16) attribute rows -> (..., 4) rectangle (x0, x1, y0, y1) of
+    pixel centres outside which the slot's alpha is 0 for certain.
+
+    alpha > 0 needs q < 9 and opa exp(-q/2) >= 1/255, that is
+    q <= qc = min(9, 2 ln(255 opa) + slack), and on q <= qc the offsets
+    from the centre obey |dx| <= sqrt(qc C / det), |dy| <= sqrt(qc A / det)
+    with det = A C - B^2. The half-widths are widened by ``EXT_SCALE`` and
+    ``EXT_PIXELS`` against float32 rounding of q. A conic that is not
+    positive definite with det >= ``DET_MIN`` A C (or holds a non-finite
+    entry) gets an infinite rectangle; an opacity under 1/255 an empty one
+    (x0 = +inf, x1 = -inf)."""
+    mx, my, ca, cb, cc, op = _GEOM_COLS[mode]
+    A, B, C, opa = rows[..., ca], rows[..., cb], rows[..., cc], rows[..., op]
+    inf = torch.full_like(A, float("inf"))
+    ac = A * C
+    det = ac - B * B
+    ok = (A > 0) & (ac > 0) & (ac < inf) & (det >= DET_MIN * ac)
+    qc = 2.0 * torch.log(opa * 255.0) + EXT_LOG_SLACK
+    qc = torch.where(qc < CUTOFF_Q, qc, torch.full_like(qc, CUTOFF_Q))
+    k = qc / det
+    rx = EXT_SCALE * torch.sqrt(k * C) + EXT_PIXELS
+    ry = EXT_SCALE * torch.sqrt(k * A) + EXT_PIXELS
+    empty = ok & (qc < 0)
+    rx = torch.where(empty, -inf, torch.where(ok, rx, inf))
+    ry = torch.where(empty, -inf, torch.where(ok, ry, inf))
+    return torch.stack([rows[..., mx] - rx, rows[..., mx] + rx,
+                        rows[..., my] - ry, rows[..., my] + ry], dim=-1)
+
+
+def warp_culled(rows: torch.Tensor, mode: str, wx0, wx1, wy0,
+                wy1) -> torch.Tensor:
+    """True where a warp whose pixel centres span [wx0, wx1] x [wy0, wy1]
+    skips the slots ``rows`` (..., 16): the plain version of
+    ``slot_outside`` in ``csrc/blend_common.cuh``, tighter than the
+    rectangle of ``slot_extent``. It takes the least q over the warp's
+    rectangle widened by ``EXT_PIXELS``: q is convex with its minimum at
+    the centre, so off the rectangle the least value lies on an edge that
+    faces the centre (x = cx or y = cy, with (cx, cy) the rectangle's
+    nearest point per axis), where q is a parabola in the other offset.
+    The slot is skipped where that value exceeds qc (see ``slot_extent``)
+    by ``EXT_SCALE``^2. A conic that is not positive definite and well
+    conditioned (a NaN in it included) is never skipped; a NaN in the
+    centre, where alpha is 0 at every pixel, may go either way."""
+    mx, my, ca, cb, cc, op = _GEOM_COLS[mode]
+    A, B, C, opa = rows[..., ca], rows[..., cb], rows[..., cc], rows[..., op]
+    zero, inf = torch.zeros_like(A), torch.full_like(A, float("inf"))
+    ac = A * C
+    det = ac - B * B
+    ok = (A > 0) & (ac > 0) & (ac < inf) & (det >= DET_MIN * ac)
+    qc = 2.0 * torch.log(opa * 255.0) + EXT_LOG_SLACK
+    qc = torch.where(qc < CUTOFF_Q, qc, torch.full_like(qc, CUTOFF_Q))
+    x0 = (wx0 - EXT_PIXELS) - rows[..., mx]
+    x1 = (wx1 + EXT_PIXELS) - rows[..., mx]
+    y0 = (wy0 - EXT_PIXELS) - rows[..., my]
+    y1 = (wy1 + EXT_PIXELS) - rows[..., my]
+    # fminf / fmaxf: the operand that is not a NaN
+    fmin, fmax = torch.fmin, torch.fmax
+    cx = fmin(fmax(zero, x0), x1)
+    cy = fmin(fmax(zero, y0), y1)
+    dy = fmin(fmax(-B * cx / C, y0), y1)
+    q1 = torch.where(cx != 0, A * cx * cx + C * dy * dy + 2.0 * B * cx * dy,
+                     inf)
+    dx = fmin(fmax(-B * cy / A, x0), x1)
+    q2 = torch.where(cy != 0, A * dx * dx + C * cy * cy + 2.0 * B * dx * cy,
+                     inf)
+    lim = qc * (EXT_SCALE * EXT_SCALE)
+    off = ~((cx == 0) & (cy == 0)) & (q1 > lim) & (q2 > lim)
+    return ok & ((qc < 0) | off)
 
 
 def _pixel_grid(T: int, ntx: int, tile: int, dev):
