@@ -122,10 +122,6 @@ BWD_NCOL = {"surfel": 15, "3dgs": 14}
 # division per hit).
 RECT_OPS = 4
 BWD_HIT_OPS_NOW = {"surfel": 55, "3dgs": 53}
-# ms of the kernels before their redesign (PERF.md section 6, kitti first
-# view, H100 80GB HBM3 at 700 W)
-PREV_MS = {("fwd", "surfel"): 0.0420, ("fwd", "3dgs"): 0.0466,
-           ("bwd", "surfel"): 0.1298, ("bwd", "3dgs"): 0.1194}
 TIGHT_ROWS = {"surfel": [0, 1, 2, 3, 4, 5, 7], "3dgs": [0, 1, 2, 4, 5, 6, 7]}
 DEPTH_ROW = {"surfel": 6, "3dgs": 3}
 
@@ -501,30 +497,35 @@ def main_path(torch, rb, name, run_dir, T_c_l, K, W, H, pick,
 
 def stages(torch, cfg, system, view, W, H, gs_type=None, reps=5):
     """Per-stage ms of render() on one view, from CUDA events recorded by
-    its stage hook (median of ``reps`` after a warm-up); also the view's
-    attribute and tile tables as the path built them."""
+    its stage hook (median of ``reps`` after a warm-up); the view's
+    attribute and tile tables as the path built them; and the host's ms
+    per stage (its clock at the same hooks). Where the two agree the card
+    waited for the host and the stage's ms is the host's.
+    Returns (stage ms, attr16, bins, ntx, nty, host ms)."""
     from pings_tpu_torch.models.renderer import render
 
     local, cam = view
     kw = render_kw(cfg, gs_type)
-    rows, seen = {}, {}
+    rows, host, seen = {}, {}, {}
     for _ in range(reps + 1):
         marks = []
 
         def hook(stage, **tensors):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            marks.append((stage, ev))
+            marks.append((stage, ev, time.perf_counter()))
             seen.update(tensors)
 
         render(local, system.decoders, cam, W, H, stage_hook=hook, **kw)
         torch.cuda.synchronize()
-        for (_, a), (stage, b) in zip(marks, marks[1:]):
+        for (_, a, ta), (stage, b, tb) in zip(marks, marks[1:]):
             rows.setdefault(stage, []).append(a.elapsed_time(b))
+            host.setdefault(stage, []).append((tb - ta) * 1e3)
     st = {k: statistics.median(v[1:]) for k, v in rows.items()}
+    st_host = {k: statistics.median(v[1:]) for k, v in host.items()}
     tile = cfg.tile_size
     ntx, nty = (W + tile - 1) // tile, (H + tile - 1) // tile
-    return st, seen["attr16"], seen["bins"], ntx, nty
+    return st, seen["attr16"], seen["bins"], ntx, nty, st_host
 
 
 def blend_work(torch, rb, attr16, bins, mode, ntx, sb):
@@ -1060,12 +1061,14 @@ def main():
               ("replica", cfg_r, sys_r, view_r, 1200, 680, "surfel"),
               ("kitti", cfg_k, sys_k3, view_k3, 640, 240, "3dgs")]
     for name, cfg, system, view, W, H, mode in shapes:
-        st, attr16, bins, ntx, nty = stages(
+        st, attr16, bins, ntx, nty, st_host = stages(
             torch, cfg, system, view, W, H,
             "3d_gs" if mode == "3dgs" else None)
         attr16 = attr16.detach()
         log(f"stages {name} {mode} ms: "
             + ", ".join(f"{k}={v:.3f}" for k, v in st.items()))
+        log(f"stages {name} {mode} host ms: "
+            + ", ".join(f"{k}={v:.3f}" for k, v in st_host.items()))
         label = f"{name} view 0"
         err["fwd", mode] = max(err["fwd", mode], compare_blend(
             torch, rb, attr16, bins, ntx, nty, mode, label=label))
@@ -1109,10 +1112,8 @@ def main():
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": REPLACES[kind, mode], "launches": n_launch,
             "max_abs_err": e, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None})
-        if (kind, mode) in PREV_MS:      # redesigned since it was ported
-            kernels[-1]["prev_ms"] = PREV_MS[kind, mode]
-            kernels[-1]["bound_hits_ms"] = bhits
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bound_hits_ms": bhits})
         if n_launch < 1:
             raise AssertionError(f"{name}: no launch on a main path")
     log(json.dumps({"kernels": kernels}))

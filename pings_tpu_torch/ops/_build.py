@@ -6,9 +6,6 @@ use, then loaded with ``ctypes``. The file name carries a hash of the
 source, of the headers beside it (``csrc/*.cuh``) and of the flags, so an
 edited kernel is rebuilt and a stale library is never loaded. ``build_all``
 starts one ``nvcc`` per source, all at once, and waits for them.
-``build_variant`` compiles one source, from this or another directory and
-with extra ``-D`` switches, for a measurement that sets kernels side by
-side; the wrappers never call it.
 
 ``-fmad=false`` keeps the compiler from contracting a multiply and an add
 into one fused operation, so each kernel rounds as its plain PyTorch
@@ -26,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
@@ -52,42 +49,29 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME)")
 
 
-def lib_path(name: str, csrc: Path = CSRC,
-             defines: Sequence[str] = ()) -> Path:
-    src = (csrc / f"{name}.cu").read_bytes()
-    for header in sorted(csrc.glob("*.cuh")):
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{h}.so"
 
 
-def _start(name: str, csrc: Path = CSRC, defines: Sequence[str] = ()):
+def _start(name: str):
     """Start compiling ``name`` unless its library exists; returns the
     running process and its paths, or None."""
-    out = lib_path(name, csrc, defines)
+    out = lib_path(name)
     if out.exists():
         return None
     nvcc = nvcc_path()
     BUILD.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-Xptxas", "-v",
-           "-o", tmp, str(csrc / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
-
-
-def _finish(name: str, job) -> str:
-    """Wait for one compiler; returns its output, raises if it failed."""
-    proc, tmp, out = job
-    text, _ = proc.communicate()
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{text}")
-    os.replace(tmp, out)
-    return text
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
@@ -98,39 +82,19 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     jobs = {n: _start(n) for n in names}
     logs, failed = {}, []
     for name, job in jobs.items():
-        try:
-            logs[name] = "" if job is None else _finish(name, job)
-        except RuntimeError as e:
-            failed.append(str(e))
+        if job is None:
+            logs[name] = ""
+            continue
+        proc, tmp, out = job
+        logs[name], _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
-
-
-def build_variants(variants: Dict[str, Tuple[str, Path, Sequence[str]]]
-                   ) -> Dict[str, Tuple[ctypes.CDLL, str]]:
-    """Compile ``{label: (name, csrc directory, defines)}`` in parallel
-    and load each: ``{label: (library, compiler output)}``. For
-    measurements only (a kernel with a design element switched off, or
-    another checkout's source); the libraries are not cached under
-    ``name``, so the wrappers do not see them unless a caller passes one
-    to ``use``."""
-    jobs = {k: _start(*v) for k, v in variants.items()}
-    out = {}
-    for label, job in jobs.items():
-        name, csrc, defines = variants[label]
-        text = "" if job is None else _finish(name, job)
-        out[label] = (ctypes.CDLL(str(lib_path(name, csrc, defines))), text)
-    return out
-
-
-def use(name: str, lib: ctypes.CDLL | None) -> None:
-    """Make ``load(name)`` return ``lib`` (None: the repo's own source
-    again). For measurements that run a variant through the wrappers."""
-    if lib is None:
-        _LIBS.pop(name, None)
-    else:
-        _LIBS[name] = lib
 
 
 def load(name: str) -> ctypes.CDLL:

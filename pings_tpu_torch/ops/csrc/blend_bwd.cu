@@ -62,8 +62,10 @@
 // - The gates of two slots are worked out together before the slots are
 //   taken in order: they do not depend on T, so their chains overlap.
 // - One division per hit: both quotients of the identity share a divisor.
-// - Staging and tile order as the forward kernel; cp.async staging and
-//   blocks that draw tiles from a counter measured no better or worse.
+// - Staging as the forward kernel. cp.async staging measured no better;
+//   blocks that draw tiles from a counter measured worse; taking the tiles
+//   longest first gained 6% where a launch needs several waves (replica)
+//   and lost at kitti, and was left out as not worth a second launch.
 
 #include "blend_common.cuh"
 
@@ -88,30 +90,15 @@ __device__ __forceinline__ void transpose_step(float (&v)[NCH], int wl) {
 }
 
 __device__ __forceinline__ float warp_transpose_sum(float (&v)[NCH], int wl) {
-#ifndef BLEND_TREE_REDUCE
   transpose_step<8>(v, wl);
   transpose_step<4>(v, wl);
   transpose_step<2>(v, wl);
   transpose_step<1>(v, wl);
   return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
-#else
-  // measurement only: one five-step tree per column
-  float mine = 0.f;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    float x = v[c];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x = x + __shfl_xor_sync(0xffffffffu, x, off);
-    if ((wl & 15) == c) mine = x;
-  }
-  return mine;
-#endif
 }
 
-#ifndef BLEND_BATCH
-#define BLEND_BATCH 2
-#endif
+// slots whose gates are worked out together
+constexpr int BATCH = 2;
 
 // One tile, by the whole block. `smem`: rows [ch][RS], partial rows
 // [2][NW][ch][NCH], ids [2][ch], hit masks [2][NW].
@@ -176,15 +163,7 @@ __device__ __forceinline__ void blend_bwd_tile(
       }
       if (a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f) {
         float* dst = d_attr16 + (size_t)gid[b * ch + j] * NCH + c4 * 4;
-#ifndef BLEND_SCALAR_ATOMICS
         atomicAdd((float4*)dst, a);
-#else
-        // measurement only: one atomic per non-zero column
-        if (a.x != 0.f) atomicAdd(dst, a.x);
-        if (a.y != 0.f) atomicAdd(dst + 1, a.y);
-        if (a.z != 0.f) atomicAdd(dst + 2, a.z);
-        if (a.w != 0.f) atomicAdd(dst + 3, a.w);
-#endif
       }
     }
   };
@@ -211,20 +190,20 @@ __device__ __forceinline__ void blend_bwd_tile(
     float* wpart = part + (size_t)(b * NW + warp) * ch * NCH;
 
     while (live) {
-      // the gates of BLEND_BATCH slots together (they do not depend on T,
+      // the gates of BATCH slots together (they do not depend on T,
       // so their long chains overlap), then the slots in order
-      int js[BLEND_BATCH];
-      Gate gt[BLEND_BATCH];
+      int js[BATCH];
+      Gate gt[BATCH];
 #pragma unroll
-      for (int i = 0; i < BLEND_BATCH; ++i) {
+      for (int i = 0; i < BATCH; ++i) {
         js[i] = __ffs(live) - 1;          // -1 once the list is empty
         live &= live - 1;
       }
 #pragma unroll
-      for (int i = 0; i < BLEND_BATCH; ++i)
+      for (int i = 0; i < BATCH; ++i)
         gt[i] = slot_gate<SURFEL>(rows + max(js[i], 0) * RS, px, py);
 #pragma unroll
-      for (int i = 0; i < BLEND_BATCH; ++i) {
+      for (int i = 0; i < BATCH; ++i) {
         const int j = js[i];
         if (j < 0) break;
         const float alpha = gt[i].alpha, e = gt[i].e;
@@ -302,54 +281,39 @@ blend_bwd_kernel(const float* __restrict__ attr16,
                  const float* __restrict__ g_trans,
                  const float* __restrict__ rho_in,
                  const float* __restrict__ trans_final,
-                 float* __restrict__ d_attr16,
-                 const int* __restrict__ order, int n, int kmax, int ntx,
+                 float* __restrict__ d_attr16, int n, int kmax, int ntx,
                  int tile, int sb, int ch) {
   extern __shared__ __align__(16) float smem[];
-  const int t = order != nullptr ? order[blockIdx.x] : blockIdx.x;
-  blend_bwd_tile<SURFEL>(t, smem, attr16, gauss_tbl, counts, g_out, g_trans,
-                         rho_in, trans_final, d_attr16, n, kmax, ntx, tile,
-                         sb, ch);
+  blend_bwd_tile<SURFEL>(blockIdx.x, smem, attr16, gauss_tbl, counts, g_out,
+                         g_trans, rho_in, trans_final, d_attr16, n, kmax, ntx,
+                         tile, sb, ch);
 }
 
 template <bool SURFEL, int MAXT>
 int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
               const void* g_out, const void* g_trans, const void* rho,
-              const void* trans_final, void* d_attr16, void* sched, int n,
-              int T, int kmax, int ntx, int tile, int sb, int ch,
-              size_t bytes, cudaStream_t stream) {
+              const void* trans_final, void* d_attr16, int n, int T,
+              int kmax, int ntx, int tile, int sb, int ch, size_t bytes,
+              cudaStream_t stream) {
   auto kernel = blend_bwd_kernel<SURFEL, MAXT>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  // one answer per instantiation and block shape (the cards of a host
-  // are taken to be alike)
-  static int resident = 0;
-  static size_t resident_for = (size_t)-1;
-  const size_t shape = bytes * 2048 + (size_t)(tile * tile);
-  if (resident_for != shape) {
-    resident = resident_blocks(kernel, tile * tile, bytes);
-    resident_for = shape;
-  }
-  const int* order = nullptr;
-  const int rc = plan_tiles(resident, counts, T, kmax, sched, stream, &order);
-  if (rc != 0) return rc;
   kernel<<<T, tile * tile, bytes, stream>>>(
       (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
       (const float*)g_out, (const float*)g_trans, (const float*)rho,
-      (const float*)trans_final, (float*)d_attr16, order, n, kmax, ntx, tile,
-      sb, ch);
+      (const float*)trans_final, (float*)d_attr16, n, kmax, ntx, tile, sb,
+      ch);
   return (int)cudaGetLastError();
 }
 
-// `sched` is scratch for T ints (see blend_common.cuh: plan_tiles).
 template <bool SURFEL>
 int launch(const void* attr16, const void* gauss_tbl, const void* counts,
            const void* g_out, const void* g_trans, const void* rho,
            const void* trans_final, void* d_attr16, int n, int T, int kmax,
-           int ntx, int tile, int sb, void* stream, void* sched) {
+           int ntx, int tile, int sb, void* stream) {
   const int P = tile * tile;
   const int NW = P / 32;
   // a chunk: at most one slot per lane, one superblock, and one 16-byte
@@ -362,11 +326,11 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
   if (T <= 0) return 0;
   if (P <= 256)
     return launch_as<SURFEL, 256>(attr16, gauss_tbl, counts, g_out, g_trans,
-                                  rho, trans_final, d_attr16, sched, n, T,
+                                  rho, trans_final, d_attr16, n, T,
                                   kmax, ntx, tile, sb, ch, bytes,
                                   (cudaStream_t)stream);
   return launch_as<SURFEL, 1024>(attr16, gauss_tbl, counts, g_out, g_trans,
-                                 rho, trans_final, d_attr16, sched, n, T,
+                                 rho, trans_final, d_attr16, n, T,
                                  kmax, ntx, tile, sb, ch, bytes,
                                  (cudaStream_t)stream);
 }
@@ -378,10 +342,10 @@ extern "C" int blend_bwd_surfel(const void* attr16, const void* gauss_tbl,
                                 const void* g_trans, const void* rho,
                                 const void* trans_final, void* d_attr16,
                                 int n, int T, int kmax, int ntx, int tile,
-                                int sb, void* stream, void* sched) {
+                                int sb, void* stream) {
   return launch<true>(attr16, gauss_tbl, counts, g_out, g_trans, rho,
                       trans_final, d_attr16, n, T, kmax, ntx, tile, sb,
-                      stream, sched);
+                      stream);
 }
 
 extern "C" int blend_bwd_3dgs(const void* attr16, const void* gauss_tbl,
@@ -389,8 +353,8 @@ extern "C" int blend_bwd_3dgs(const void* attr16, const void* gauss_tbl,
                               const void* g_trans, const void* rho,
                               const void* trans_final, void* d_attr16,
                               int n, int T, int kmax, int ntx, int tile,
-                              int sb, void* stream, void* sched) {
+                              int sb, void* stream) {
   return launch<false>(attr16, gauss_tbl, counts, g_out, g_trans, rho,
                        trans_final, d_attr16, n, T, kmax, ntx, tile, sb,
-                       stream, sched);
+                       stream);
 }

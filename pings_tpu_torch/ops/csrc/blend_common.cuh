@@ -34,7 +34,7 @@ constexpr float EXT_LOG_SLACK = 0.01f;
 // position of its value in the (T, C, P) outputs.
 struct Pixels {
   float px, py;            // this lane's pixel centre, global
-  float wx0, wx1, wy0, wy1;  // the warp's pixel centres: [wx0, wx1] x [wy0, wy1]
+  float wx0, wx1, wy0, wy1;  // the warp's pixel centres span these
   int pix;
 };
 
@@ -70,9 +70,6 @@ __device__ __forceinline__ Pixels block_pixels(int t, int ntx, int tile) {
 __device__ __forceinline__ bool slot_outside(float mx, float my, float A,
                                              float B, float C, float opa,
                                              const Pixels& p) {
-#ifdef BLEND_NO_CULL
-  return false;
-#else
   const float ac = A * C;
   const float det = ac - B * B;
   if (!(A > 0.f && ac > 0.f && ac < CUDART_INF_F && det >= DET_MIN * ac))
@@ -96,7 +93,6 @@ __device__ __forceinline__ bool slot_outside(float mx, float my, float A,
   if (cx == 0.f && cy == 0.f) return false;   // the centre is inside
   const float lim = qc * (EXT_SCALE * EXT_SCALE);
   return q1 > lim && q2 > lim;
-#endif
 }
 
 // One slot at one pixel: alpha after every gate, the plane depth's inverse
@@ -184,92 +180,6 @@ __device__ __forceinline__ unsigned chunk_live(const float* rows, int nrows,
     }
   }
   return __ballot_sync(0xffffffffu, keep);
-}
-
-// Scheduling. One block per tile. The hardware starts blocks in index
-// order as SMs free up, so where the tiles need several waves the blocks
-// take them longest first (block i takes tile order[i]) and the short ones
-// fill the tail; where all tiles are resident at once, or nearly, the order
-// cannot matter and block i takes tile i. tile_order_kernel (one block,
-// ahead of the blend kernel on the stream) fills `order` by a counting
-// sort on the slot counts, ties in any order. `hist` holds kmax + 1 bins.
-__global__ void tile_order_kernel(const int* __restrict__ counts, int T,
-                                  int kmax, int* __restrict__ order) {
-  extern __shared__ int hist[];
-  const int tid = threadIdx.x;
-  for (int c = tid; c <= kmax; c += blockDim.x) hist[c] = 0;
-  __syncthreads();
-  for (int t = tid; t < T; t += blockDim.x)
-    atomicAdd(&hist[max(0, min(counts[t], kmax))], 1);
-  __syncthreads();
-  // hist[c] <- the number of tiles with a larger count (warp 0: each lane
-  // sums a run of bins, the lanes' sums are scanned with shuffles)
-  if (tid < 32) {
-    const int per = (kmax + 32) / 32;
-    const int hi = kmax - tid * per;         // this lane's bins, downwards
-    int sum = 0;
-    for (int i = 0; i < per; ++i)
-      if (hi - i >= 0) sum += hist[hi - i];
-    int before = sum;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, before, off);
-      if (tid >= off) before += v;
-    }
-    before -= sum;
-    for (int i = 0; i < per; ++i) {
-      if (hi - i >= 0) {
-        const int h = hist[hi - i];
-        hist[hi - i] = before;
-        before += h;
-      }
-    }
-  }
-  __syncthreads();
-  for (int t = tid; t < T; t += blockDim.x)
-    order[atomicAdd(&hist[max(0, min(counts[t], kmax))], 1)] = t;
-}
-
-// The blocks of `kernel` (P threads, `bytes` of dynamic shared memory a
-// block) that the card holds at once, or a negative CUDA error code. The
-// query is slow beside a launch, so a caller keeps the answer.
-template <typename Kernel>
-int resident_blocks(Kernel kernel, int P, size_t bytes) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P,
-                                                      bytes);
-  return e == cudaSuccess ? sms * per_sm : -(int)e;
-}
-
-// Decide the order in which a launch takes its T tiles, given how many of
-// its blocks are resident at once, and fill `scratch` (T ints) where it is
-// needed: *order is `scratch` with the tiles longest first when they need
-// two waves or more, else nullptr (index order). Returns a CUDA error code.
-inline int plan_tiles(int resident, const void* counts, int T, int kmax,
-                      void* scratch, cudaStream_t stream,
-                      const int** order) {
-  *order = nullptr;
-#ifndef BLEND_NO_ORDER            // measurement only
-  if (resident < 0) return -resident;
-  if (T < 2 * resident) return 0;
-  const size_t hb = (size_t)(kmax + 1) * sizeof(int);
-  cudaError_t e = cudaSuccess;
-  if (hb > 48 * 1024) {
-    e = cudaFuncSetAttribute(tile_order_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)hb);
-    if (e != cudaSuccess) return (int)e;
-  }
-  tile_order_kernel<<<1, 1024, hb, stream>>>((const int*)counts, T, kmax,
-                                             (int*)scratch);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  *order = (const int*)scratch;
-#endif
-  return 0;
 }
 
 }  // namespace blend

@@ -56,9 +56,10 @@
 //   loads), so it is not used; TMA does not fit a gather through an index
 //   table.
 // - 1/s is taken only where alpha > 0.
-// - Tiles that need two waves of blocks or more are taken longest first
-//   (blend_common.cuh: plan_tiles), so that short tiles fill the tail.
-//   Blocks that draw tiles from a counter measured slower at every table.
+// - Block i takes tile i. Blocks that draw tiles from a counter measured
+//   slower at every table; taking the tiles longest first (a counting sort
+//   in a launch of its own) gained 4% where a launch needs several waves
+//   (replica) and lost at kitti, and was left out as not worth the code.
 
 #include "blend_common.cuh"
 
@@ -148,17 +149,15 @@ blend_fwd_kernel(const float* __restrict__ attr16,
                  const int* __restrict__ gauss_tbl,
                  const int* __restrict__ counts, float* __restrict__ out,
                  float* __restrict__ trans_out, float* __restrict__ med_out,
-                 const int* __restrict__ order, int n, int kmax, int ntx,
-                 int tile, int sb, int ch) {
+                 int n, int kmax, int ntx, int tile, int sb, int ch) {
   extern __shared__ __align__(16) float rows[];   // ch staged rows
-  const int t = order != nullptr ? order[blockIdx.x] : blockIdx.x;
-  blend_fwd_tile<SURFEL>(t, rows, attr16, gauss_tbl, counts, out, trans_out,
-                         med_out, n, kmax, ntx, tile, sb, ch);
+  blend_fwd_tile<SURFEL>(blockIdx.x, rows, attr16, gauss_tbl, counts, out,
+                         trans_out, med_out, n, kmax, ntx, tile, sb, ch);
 }
 
 template <bool SURFEL, int MAXT>
 int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
-              void* out, void* trans, void* med, void* sched, int n, int T,
+              void* out, void* trans, void* med, int n, int T,
               int kmax, int ntx, int tile, int sb, int ch, size_t bytes,
               cudaStream_t stream) {
   auto kernel = blend_fwd_kernel<SURFEL, MAXT>;
@@ -167,30 +166,16 @@ int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  // one answer per instantiation and block shape (the cards of a host
-  // are taken to be alike)
-  static int resident = 0;
-  static size_t resident_for = (size_t)-1;
-  const size_t shape = bytes * 2048 + (size_t)(tile * tile);
-  if (resident_for != shape) {
-    resident = resident_blocks(kernel, tile * tile, bytes);
-    resident_for = shape;
-  }
-  const int* order = nullptr;
-  const int rc = plan_tiles(resident, counts, T, kmax, sched, stream, &order);
-  if (rc != 0) return rc;
   kernel<<<T, tile * tile, bytes, stream>>>(
       (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
-      (float*)out, (float*)trans, (float*)med, order, n, kmax, ntx, tile,
-      sb, ch);
+      (float*)out, (float*)trans, (float*)med, n, kmax, ntx, tile, sb, ch);
   return (int)cudaGetLastError();
 }
 
-// `sched` is scratch for T ints (see blend_common.cuh: plan_tiles).
 template <bool SURFEL>
 int launch(const void* attr16, const void* gauss_tbl, const void* counts,
            void* out, void* trans, void* med, int n, int T, int kmax,
-           int ntx, int tile, int sb, void* stream, void* sched) {
+           int ntx, int tile, int sb, void* stream) {
   const int P = tile * tile;
   // a chunk: at most one slot per lane, one superblock, and one 16-byte
   // copy per thread (sb is a power of two >= 8, P / 4 >= 16)
@@ -199,10 +184,10 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
   if (T <= 0) return 0;
   if (P <= 256)
     return launch_as<SURFEL, 256>(attr16, gauss_tbl, counts, out, trans, med,
-                                  sched, n, T, kmax, ntx, tile, sb, ch, bytes,
+                                  n, T, kmax, ntx, tile, sb, ch, bytes,
                                   (cudaStream_t)stream);
   return launch_as<SURFEL, 1024>(attr16, gauss_tbl, counts, out, trans, med,
-                                 sched, n, T, kmax, ntx, tile, sb, ch, bytes,
+                                 n, T, kmax, ntx, tile, sb, ch, bytes,
                                  (cudaStream_t)stream);
 }
 
@@ -211,15 +196,15 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
 extern "C" int blend_fwd_surfel(const void* attr16, const void* gauss_tbl,
                                 const void* counts, void* out, void* trans,
                                 void* med, int n, int T, int kmax, int ntx,
-                                int tile, int sb, void* stream, void* sched) {
+                                int tile, int sb, void* stream) {
   return launch<true>(attr16, gauss_tbl, counts, out, trans, med, n, T,
-                      kmax, ntx, tile, sb, stream, sched);
+                      kmax, ntx, tile, sb, stream);
 }
 
 extern "C" int blend_fwd_3dgs(const void* attr16, const void* gauss_tbl,
                               const void* counts, void* out, void* trans,
                               int n, int T, int kmax, int ntx, int tile,
-                              int sb, void* stream, void* sched) {
+                              int sb, void* stream) {
   return launch<false>(attr16, gauss_tbl, counts, out, trans, nullptr, n, T,
-                       kmax, ntx, tile, sb, stream, sched);
+                       kmax, ntx, tile, sb, stream);
 }

@@ -18,7 +18,7 @@ Column layouts (per Gaussian, 16 float32):
 
 ``warp_culled`` is the plain version of the test by which a warp of the
 forward and backward kernels skips a slot whose Gaussian cannot reach its
-pixels, ``slot_extent`` the rectangle that holds every pixel it can reach.
+pixels.
 
 Each wrapper (``blend_fwd``, ``blend_bwd``, ``blend_contrib``) runs its
 CUDA kernel (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``,
@@ -197,11 +197,9 @@ def _lib(name: str, argtypes: dict) -> ctypes.CDLL:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-# forward and backward end with the stream and T ints of scratch
-_FWD_ARGS = {"blend_fwd_surfel": [_VP] * 6 + [_CI] * 6 + [_VP] * 2,
-             "blend_fwd_3dgs": [_VP] * 5 + [_CI] * 6 + [_VP] * 2}
-_BWD_ARGS = {f"blend_bwd_{m}": [_VP] * 8 + [_CI] * 6 + [_VP] * 2
-             for m in MODES}
+_FWD_ARGS = {"blend_fwd_surfel": [_VP] * 6 + [_CI] * 6 + [_VP],
+             "blend_fwd_3dgs": [_VP] * 5 + [_CI] * 6 + [_VP]}
+_BWD_ARGS = {f"blend_bwd_{m}": [_VP] * 8 + [_CI] * 6 + [_VP] for m in MODES}
 _CONTRIB_ARGS = {f"blend_contrib_{m}": [_VP] * 5 + [_CI] * 6 + [_VP]
                  for m in MODES}
 
@@ -224,17 +222,15 @@ def blend_fwd(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
     trans = torch.empty((T, 1, P), dtype=torch.float32, device=dev)
     med = (torch.empty if mode == "surfel" else torch.zeros)(
         (T, 1, P), dtype=torch.float32, device=dev)
-    sched = torch.empty((T,), dtype=torch.int32, device=dev)   # scratch
     lib = _lib("blend_fwd", _FWD_ARGS)
     ints = [_CI(v) for v in (attr16.shape[0], T, kmax, ntx, tile, sb)]
     if mode == "surfel":
         rc = lib.blend_fwd_surfel(_ptr(attr16), _ptr(tbl), _ptr(counts),
                                   _ptr(out), _ptr(trans), _ptr(med), *ints,
-                                  _stream(dev), _ptr(sched))
+                                  _stream(dev))
     else:
         rc = lib.blend_fwd_3dgs(_ptr(attr16), _ptr(tbl), _ptr(counts),
-                                _ptr(out), _ptr(trans), *ints, _stream(dev),
-                                _ptr(sched))
+                                _ptr(out), _ptr(trans), *ints, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"blend_fwd_{mode} launch failed: CUDA error {rc}")
     LAUNCHES[mode] += 1
@@ -277,15 +273,13 @@ def blend_bwd(attr16: torch.Tensor, bins: TileBins, g_out: torch.Tensor,
     attr16, tbl, counts = _cuda_inputs("blend_bwd", attr16, bins, align=16)
     sb = superblock(kmax, sup)
     d_attr16 = torch.zeros((n, NCH), dtype=torch.float32, device=dev)
-    sched = torch.empty((T,), dtype=torch.int32, device=dev)   # scratch
     lib = _lib("blend_bwd", _BWD_ARGS)
     ints = [_CI(v) for v in (n, T, kmax, ntx, tile, sb)]
     g_out, g_trans, rho, trans_final = (
         x.contiguous() for x in (g_out, g_trans, rho, trans_final))
     rc = getattr(lib, f"blend_bwd_{mode}")(
         _ptr(attr16), _ptr(tbl), _ptr(counts), _ptr(g_out), _ptr(g_trans),
-        _ptr(rho), _ptr(trans_final), _ptr(d_attr16), *ints, _stream(dev),
-        _ptr(sched))
+        _ptr(rho), _ptr(trans_final), _ptr(d_attr16), *ints, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"blend_bwd_{mode} launch failed: CUDA error {rc}")
     BWD_LAUNCHES[mode] += 1
@@ -360,58 +354,29 @@ def slot_alpha(col, px: torch.Tensor, py: torch.Tensor, mode: str):
     return t[0], t[1]
 
 
-# the extent's margins, as csrc/blend_common.cuh has them
-DET_MIN = 1e-3          # least det / (A C) of a conic whose extent is used
-EXT_SCALE = 1.01        # widens the half-widths (2% in q)
-EXT_PIXELS = 1.0        # and by this many pixels
+# the cull's margins, as csrc/blend_common.cuh has them
+DET_MIN = 1e-3          # least det / (A C) of a conic that may be culled
+EXT_SCALE = 1.01        # widens lengths (2% in q)
+EXT_PIXELS = 1.0        # widens the warp's rectangle, in pixels
 EXT_LOG_SLACK = 0.01    # added to 2 ln(255 opa)
 WARP_W, WARP_H = 8, 4   # the block of pixels a warp of the kernels owns
-
-
-def slot_extent(rows: torch.Tensor, mode: str) -> torch.Tensor:
-    """(..., 16) attribute rows -> (..., 4) rectangle (x0, x1, y0, y1) of
-    pixel centres outside which the slot's alpha is 0 for certain.
-
-    alpha > 0 needs q < 9 and opa exp(-q/2) >= 1/255, that is
-    q <= qc = min(9, 2 ln(255 opa) + slack), and on q <= qc the offsets
-    from the centre obey |dx| <= sqrt(qc C / det), |dy| <= sqrt(qc A / det)
-    with det = A C - B^2. The half-widths are widened by ``EXT_SCALE`` and
-    ``EXT_PIXELS`` against float32 rounding of q. A conic that is not
-    positive definite with det >= ``DET_MIN`` A C (or holds a non-finite
-    entry) gets an infinite rectangle; an opacity under 1/255 an empty one
-    (x0 = +inf, x1 = -inf)."""
-    mx, my, ca, cb, cc, op = _GEOM_COLS[mode]
-    A, B, C, opa = rows[..., ca], rows[..., cb], rows[..., cc], rows[..., op]
-    inf = torch.full_like(A, float("inf"))
-    ac = A * C
-    det = ac - B * B
-    ok = (A > 0) & (ac > 0) & (ac < inf) & (det >= DET_MIN * ac)
-    qc = 2.0 * torch.log(opa * 255.0) + EXT_LOG_SLACK
-    qc = torch.where(qc < CUTOFF_Q, qc, torch.full_like(qc, CUTOFF_Q))
-    k = qc / det
-    rx = EXT_SCALE * torch.sqrt(k * C) + EXT_PIXELS
-    ry = EXT_SCALE * torch.sqrt(k * A) + EXT_PIXELS
-    empty = ok & (qc < 0)
-    rx = torch.where(empty, -inf, torch.where(ok, rx, inf))
-    ry = torch.where(empty, -inf, torch.where(ok, ry, inf))
-    return torch.stack([rows[..., mx] - rx, rows[..., mx] + rx,
-                        rows[..., my] - ry, rows[..., my] + ry], dim=-1)
 
 
 def warp_culled(rows: torch.Tensor, mode: str, wx0, wx1, wy0,
                 wy1) -> torch.Tensor:
     """True where a warp whose pixel centres span [wx0, wx1] x [wy0, wy1]
     skips the slots ``rows`` (..., 16): the plain version of
-    ``slot_outside`` in ``csrc/blend_common.cuh``, tighter than the
-    rectangle of ``slot_extent``. It takes the least q over the warp's
+    ``slot_outside`` in ``csrc/blend_common.cuh``. alpha > 0 needs q < 9
+    and opa exp(-q/2) >= 1/255, that is q <= qc = min(9, 2 ln(255 opa)
+    + ``EXT_LOG_SLACK``). The test takes the least q over the warp's
     rectangle widened by ``EXT_PIXELS``: q is convex with its minimum at
     the centre, so off the rectangle the least value lies on an edge that
     faces the centre (x = cx or y = cy, with (cx, cy) the rectangle's
     nearest point per axis), where q is a parabola in the other offset.
-    The slot is skipped where that value exceeds qc (see ``slot_extent``)
-    by ``EXT_SCALE``^2. A conic that is not positive definite and well
-    conditioned (a NaN in it included) is never skipped; a NaN in the
-    centre, where alpha is 0 at every pixel, may go either way."""
+    The slot is skipped where that value exceeds qc by ``EXT_SCALE``^2. A
+    conic that is not positive definite and well conditioned (a NaN in it
+    included) is never skipped; a NaN in the centre, where alpha is 0 at
+    every pixel, may go either way."""
     mx, my, ca, cb, cc, op = _GEOM_COLS[mode]
     A, B, C, opa = rows[..., ca], rows[..., cb], rows[..., cc], rows[..., op]
     zero, inf = torch.zeros_like(A), torch.full_like(A, float("inf"))

@@ -1,40 +1,43 @@
 #!/usr/bin/env python3
-"""Set the port's forward and backward blend kernels side by side on one
-GPU: the sources as they stand, the same sources with one design element
-switched off at a time (``-D`` switches that exist for this script only),
-and optionally the sources of another checkout.
+"""Set the port's forward and backward blend kernels, as they stand, beside
+those of another checkout on one GPU.
 
-    python3 scripts/torch_blend_bench.py [--baseline DIR] [--rounds 7]
+    python3 scripts/torch_blend_bench.py --baseline DIR [--rounds 7]
                                          [--launches 20] [--out FILE]
 
 ``--baseline DIR`` is the root of another checkout of this repository (for
-example ``git archive <commit> | tar -x -C DIR``); its
-``pings_tpu_torch/ops/csrc/blend_{fwd,bwd}.cu`` are built with the same
-flags and called through this checkout's wrappers (the C interface is the
-same).
+example ``git archive <commit> pings_tpu_torch/ops/csrc | tar -x -C DIR``);
+its ``pings_tpu_torch/ops/csrc/blend_{fwd,bwd}.cu`` are built with this
+checkout's flags and called through this checkout's wrappers, so their C
+interface must be the same. Without ``--baseline`` only the current
+kernels are timed.
 
 Tables: the first view of the kitti and the replica checkpoints as
 ``render()`` builds them (surfel mode) and the kitti view in 3dgs mode.
-Every variant is first held against the plain PyTorch version on a random
-table (forward 1e-5 absolute, backward 2e-4 of a column's magnitude) and
-on the real tables. Then the variants are timed in turns within each round
-(a, b, c, a, b, c, ...), ``--launches`` launches per turn between two CUDA
-events. Two clocks are printed: ``queued`` puts a spin kernel ahead of the
-launches, so that the host has enqueued all of them before the first
-starts and the time is the card's alone (kernel, the wrapper's output
-allocation and, in the backward, the zero fill of the gradient);
-``eager`` launches onto an idle card as a caller would, and reads the
-larger of the host's time per call and the card's. Prints the card's name,
-power limit and SM clock, and writes one JSON object with every time to
-``--out`` (default ``build/blend_bench.json``) and its log beside it.
+Both versions are first held against the plain PyTorch version on the real
+tables (forward 1e-5 absolute, backward 2e-4 of a column's magnitude).
+Then they are timed in turns within each round (a, b, a, b, ...),
+``--launches`` launches per turn between two CUDA events. Two clocks are
+printed: ``queued`` puts a spin kernel ahead of the launches, so that the
+host has enqueued all of them before the first starts and the time is the
+card's alone (kernel, the wrapper's output allocation and, in the
+backward, the zero fill of the gradient); ``eager`` launches onto an idle
+card as a caller would, and reads the larger of the host's time per call
+and the card's. Also printed: the share of the warp-slots that the
+kernels' cull skips on each table beside the share that holds no pixel
+with alpha > 0, the card's name, power limit and SM clock. One JSON object
+with every time goes to ``--out`` (default ``build/blend_bench.json``) and
+the log beside it.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
 import subprocess
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -42,18 +45,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SWITCHES = {"fwd": ["BLEND_NO_CULL", "BLEND_NO_ORDER"],
-            "bwd": ["BLEND_NO_CULL", "BLEND_TREE_REDUCE",
-                    "BLEND_SCALAR_ATOMICS", "BLEND_BATCH=1",
-                    "BLEND_NO_ORDER"]}
+KINDS = ("fwd", "bwd")
 
 
 def cull_stats(torch, rb, attr16, bins, ntx, mode, tile=16):
-    """What the warp cull can and does remove on one table, as shares of
-    the warp-slots below the tiles' counts: skipped by the kernels' test
-    (and by the looser test on the slots' rectangles) and holding a pixel
-    with alpha > 0 (the least a walk that keeps a warp together can
-    visit)."""
+    """Shares of the warp-slots below the tiles' counts on one table:
+    skipped by the kernels' test (``warp_culled``) and holding a pixel with
+    alpha > 0 (the least a walk that keeps a warp together can visit)."""
     T, kmax = bins.gauss_tbl.shape
     n = attr16.shape[0]
     P, nw, wpr = tile * tile, tile * tile // 32, tile // rb.WARP_W
@@ -62,7 +60,7 @@ def cull_stats(torch, rb, attr16, bins, ntx, mode, tile=16):
     warp = torch.arange(nw, device=dev)
     bx, by = (warp % wpr) * rb.WARP_W, (warp // wpr) * rb.WARP_H
     counts = torch.clamp_max(bins.counts.long(), kmax)
-    tot = dict.fromkeys(("slots", "culled", "culled_by_rectangle", "hit"), 0)
+    tot = dict.fromkeys(("slots", "culled", "hit"), 0)
     for t0 in range(0, T, 128):
         t = torch.arange(t0, min(T, t0 + 128), device=dev)
         on = torch.arange(kmax, device=dev)[None] < counts[t][:, None]
@@ -71,12 +69,8 @@ def cull_stats(torch, rb, attr16, bins, ntx, mode, tile=16):
         py = ((t[:, None] // ntx) * tile + lane // tile).float() + 0.5
         wx0 = ((t[:, None] % ntx) * tile + bx).float()[:, None] + 0.5
         wy0 = ((t[:, None] // ntx) * tile + by).float()[:, None] + 0.5
-        rect = rb.slot_extent(rows, mode)[:, :, None]          # (t, K, 1, 4)
         culled = rb.warp_culled(rows[:, :, None], mode, wx0,
                                 wx0 + rb.WARP_W - 1, wy0, wy0 + rb.WARP_H - 1)
-        culled0 = ((rect[..., 1] < wx0) | (rect[..., 0] > wx0 + rb.WARP_W - 1)
-                   | (rect[..., 3] < wy0)
-                   | (rect[..., 2] > wy0 + rb.WARP_H - 1))
         alpha, _ = rb.slot_alpha(lambda i: rows[:, :, i:i + 1], px[:, None],
                                  py[:, None], mode)            # (t, K, P)
         hit = (alpha > 0).reshape(len(t), kmax, tile // rb.WARP_H, rb.WARP_H,
@@ -86,17 +80,20 @@ def cull_stats(torch, rb, attr16, bins, ntx, mode, tile=16):
             raise AssertionError("the cull would skip a pixel with alpha > 0")
         tot["slots"] += int(on.sum()) * nw
         tot["culled"] += int((culled & on[:, :, None]).sum())
-        tot["culled_by_rectangle"] += int((culled0 & on[:, :, None]).sum())
         tot["hit"] += int((hit & on[:, :, None]).sum())
     return {k: (v if k == "slots" else v / max(tot["slots"], 1))
             for k, v in tot.items()}
 
 
-def smi(query):
-    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True, timeout=60)
-    return r.stdout.strip().splitlines()[0]
+def build_baseline(_build, root, name):
+    """Compile ``name``.cu of the checkout under ``root`` with this
+    checkout's compiler flags; returns the loaded library."""
+    csrc = root / "pings_tpu_torch" / "ops" / "csrc"
+    out = _build.BUILD / f"baseline-{name}.so"
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(csrc / f"{name}.cu")], check=True, timeout=600)
+    return ctypes.CDLL(str(out))
 
 
 def main():
@@ -125,53 +122,33 @@ def main():
         print(*a, file=full, flush=True)
 
     cs.log = log          # the helpers' lines go to the file as well
-    log(smi("name,power.limit"), "| clocks", smi("clocks.sm,clocks.max.sm"))
+    log(cs.smi("name,power.limit"), "| clocks",
+        cs.smi("clocks.sm,clocks.max.sm"))
 
-    # variants -----------------------------------------------------------
-    specs = {}
-    for kind in ("fwd", "bwd"):
-        name = f"blend_{kind}"
-        specs[kind, "new"] = (name, _build.CSRC, ())
-        for sw in SWITCHES[kind]:
-            specs[kind, sw] = (name, _build.CSRC, tuple(sw.split("+")))
-        if args.baseline:
-            specs[kind, "baseline"] = (
-                name, args.baseline / "pings_tpu_torch" / "ops" / "csrc", ())
-    built = _build.build_variants(specs)
-    for (kind, label), (_, text) in built.items():
-        for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log(f"  {kind} {label}: {line.strip()}")
-    libs = {k: v[0] for k, v in built.items()}
-    labels = {kind: [lab for (k, lab) in libs if k == kind]
-              for kind in ("fwd", "bwd")}
+    libs = {"current": {f"blend_{k}": _build.load(f"blend_{k}")
+                        for k in KINDS}}
+    if args.baseline:
+        libs["baseline"] = {f"blend_{k}": build_baseline(
+            _build, args.baseline, f"blend_{k}") for k in KINDS}
+    load = _build.load
 
-    def use(label):
-        # the backward's checks and cotangents come from a forward launch:
-        # both kernels of a variant are put in place together
-        for k in ("fwd", "bwd"):
-            lab = label if (k, label) in libs else "new"
-            _build.use(f"blend_{k}", libs[k, lab])
+    @contextmanager
+    def using(label, kind=None):
+        """The wrappers load ``label``'s library of ``kind`` (None: both;
+        the backward's checks and cotangents come from a forward launch)."""
+        picked = {n: lib for n, lib in libs[label].items()
+                  if kind is None or n == f"blend_{kind}"}
+        _build.load = lambda name: picked.get(name) or load(name)
+        try:
+            yield
+        finally:
+            _build.load = load
 
-    # correctness on random tables ---------------------------------------
-    for mode in rb.MODES:
-        a, bins, ntx, nty = cs.random_tables(torch, mode, 600, 128, 60000,
-                                             seed=1)
-        for label in dict.fromkeys(labels["fwd"] + labels["bwd"]):
-            use(label)
-            for sup in (256, 32):
-                cs.compare_blend(torch, rb, a, bins, ntx, nty, mode, sup,
-                                 f"{label} sup={sup}")
-                cs.compare_bwd(torch, rb, a, bins, ntx, nty, mode, sup,
-                               f"{label} sup={sup}")
-
-    # real tables ----------------------------------------------------------
     T_c_l = np.eye(4)
     T_c_l[:3, :3] = [[0.0, -1, 0], [0, 0, -1], [1, 0, 0]]
     T_c_l[:3, 3] = [0.05, -0.1, -0.3]
     K_kitti = np.array([[420.0, 0, 320.0], [0, 420.0, 120.0], [0, 0, 1]])
     K_rep = np.array([[600.0, 0, 599.5], [0, 600.0, 339.5], [0, 0, 1]])
-    use("new")
     tables = {}
     for name, run, tcl, K, W, H, pick, gs in (
             ("kitti surfel", cs.KITTI, T_c_l, K_kitti, 640, 240, [40], None),
@@ -182,7 +159,7 @@ def main():
         _, _, (cfg, system, view) = cs.main_path(
             torch, rb, name, run, tcl, K, W, H, pick + pick, gs_type=gs)
         _, attr16, bins, ntx, nty = cs.stages(torch, cfg, system, view, W, H,
-                                              gs, reps=1)
+                                              gs, reps=1)[:5]
         tables[name] = (attr16.detach(), bins, ntx, nty,
                         "3dgs" if gs else "surfel")
         del system
@@ -202,16 +179,13 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n
 
-    results = {"card": smi("name,power.limit"), "times": {}}
+    results = {"card": cs.smi("name,power.limit"), "times": {}}
     for tname, (attr16, bins, ntx, nty, mode) in tables.items():
         T, n = bins.counts.shape[0], attr16.shape[0]
         stats = cull_stats(torch, rb, attr16, bins, ntx, mode)
         log(f"{tname}: warp-slots {stats['slots']}, share culled "
-            f"{stats['culled']:.4f} (by the slots' rectangles alone "
-            f"{stats['culled_by_rectangle']:.4f}), share with a hit "
-            f"{stats['hit']:.4f}")
+            f"{stats['culled']:.4f}, share with a hit {stats['hit']:.4f}")
         results["times"][f"{tname} cull"] = stats
-        use("new")
         out, trans, _ = rb.blend_fwd(attr16, bins, ntx, nty, 16, mode)
         gen = torch.Generator(device="cuda").manual_seed(0)
         g_out = torch.randn((T, 8, 256), device="cuda", generator=gen)
@@ -220,35 +194,35 @@ def main():
         cot = (g_out, g_trans, rho, trans, ntx, nty, 16, mode)
         fns = {"fwd": lambda: rb.blend_fwd(attr16, bins, ntx, nty, 16, mode),
                "bwd": lambda: rb.blend_bwd(attr16, bins, *cot)}
-        for label in dict.fromkeys(labels["fwd"] + labels["bwd"]):
-            use(label)
-            cs.compare_blend(torch, rb, attr16, bins, ntx, nty, mode,
-                             label=f"{tname} {label}")
-            cs.compare_bwd(torch, rb, attr16, bins, ntx, nty, mode,
-                           label=f"{tname} {label}")
+        for label in libs:
+            with using(label):
+                cs.compare_blend(torch, rb, attr16, bins, ntx, nty, mode,
+                                 label=f"{tname} {label}")
+                cs.compare_bwd(torch, rb, attr16, bins, ntx, nty, mode,
+                               label=f"{tname} {label}")
         # the wrapper's fixed device work beside the backward kernel
         fill = timed(lambda: torch.zeros((n, 16), device="cuda"),
                      args.launches, True)
         log(f"{tname}: zero fill of the ({n}, 16) gradient {fill:.5f} ms "
             "(queued), inside every backward time below")
         results["times"][f"{tname} zero_fill"] = fill
-        for kind in ("fwd", "bwd"):
+        for kind in KINDS:
             for queued in (True, False):
-                rows = {lab: [] for lab in labels[kind]}
+                rows = {label: [] for label in libs}
                 for _ in range(args.rounds):
-                    for lab in labels[kind]:
-                        _build.use(f"blend_{kind}", libs[kind, lab])
-                        rows[lab].append(timed(fns[kind], args.launches,
-                                               queued))
+                    for label in libs:
+                        with using(label, kind):
+                            rows[label].append(timed(fns[kind], args.launches,
+                                                     queued))
                 clock = "queued" if queued else "eager"
-                for lab, v in rows.items():
+                for label, v in rows.items():
                     med = statistics.median(v)
-                    log(f"{tname} {kind} {clock:6s} {lab:22s} median "
+                    log(f"{tname} {kind} {clock:6s} {label:9s} median "
                         f"{med:.5f} ms  min {min(v):.5f} max {max(v):.5f}")
-                    results["times"][f"{tname} {kind} {clock} {lab}"] = {
+                    results["times"][f"{tname} {kind} {clock} {label}"] = {
                         "median_ms": med, "rounds_ms": v}
-        log("clocks", smi("clocks.sm,clocks.max.sm"))
-    results["clocks_after"] = smi("clocks.sm,clocks.max.sm")
+        log("clocks", cs.smi("clocks.sm,clocks.max.sm"))
+    results["clocks_after"] = cs.smi("clocks.sm,clocks.max.sm")
     args.out.write_text(json.dumps(results, indent=1))
     log(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0

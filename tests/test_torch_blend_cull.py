@@ -1,9 +1,10 @@
 """The parts of the redesigned blend kernels that run without a card.
 
 - ``raster_blend.warp_culled`` (the plain version of ``slot_outside`` in
-  ``csrc/blend_common.cuh``, by which a warp skips a slot) and
-  ``slot_extent`` (the rectangle that holds a slot's pixels) never exclude
-  a pixel where ``slot_alpha`` gives alpha > 0: random and near-degenerate
+  ``csrc/blend_common.cuh``, by which a warp skips a slot) and, as a
+  second and looser statement of the same bound, ``slot_extent`` below
+  (the rectangle that holds a slot's pixels) never exclude a pixel where
+  ``slot_alpha`` gives alpha > 0: random and near-degenerate
   conics, conics that are not positive definite, non-finite rows, means
   far outside the image, sub-pixel Gaussians on a pixel centre, opacities
   around 1/255, Gaussians whose cutoff ends exactly on a warp rectangle's
@@ -25,6 +26,36 @@ from test_torch_raster_blend import random_table
 
 W, H = 64, 48       # the image of the pixel grids below
 GEOM = {"surfel": (6, 7, 8, 9, 10, 11), "3dgs": (8, 9, 10, 11, 12, 13)}
+
+
+def slot_extent(rows: torch.Tensor, mode: str) -> torch.Tensor:
+    """(..., 16) attribute rows -> (..., 4) rectangle (x0, x1, y0, y1) of
+    pixel centres outside which the slot's alpha is 0 for certain.
+
+    alpha > 0 needs q < 9 and opa exp(-q/2) >= 1/255, that is
+    q <= qc = min(9, 2 ln(255 opa) + slack), and on q <= qc the offsets
+    from the centre obey |dx| <= sqrt(qc C / det), |dy| <= sqrt(qc A / det)
+    with det = A C - B^2. The half-widths are widened by the margins of
+    ``raster_blend.warp_culled``. A conic that is not positive definite
+    with det >= ``DET_MIN`` A C (or holds a non-finite entry) gets an
+    infinite rectangle; an opacity under 1/255 an empty one (x0 = +inf,
+    x1 = -inf)."""
+    mx, my, ca, cb, cc, op = GEOM[mode]
+    A, B, C, opa = rows[..., ca], rows[..., cb], rows[..., cc], rows[..., op]
+    inf = torch.full_like(A, float("inf"))
+    ac = A * C
+    det = ac - B * B
+    ok = (A > 0) & (ac > 0) & (ac < inf) & (det >= rb.DET_MIN * ac)
+    qc = 2.0 * torch.log(opa * 255.0) + rb.EXT_LOG_SLACK
+    qc = torch.where(qc < rb.CUTOFF_Q, qc, torch.full_like(qc, rb.CUTOFF_Q))
+    k = qc / det
+    rx = rb.EXT_SCALE * torch.sqrt(k * C) + rb.EXT_PIXELS
+    ry = rb.EXT_SCALE * torch.sqrt(k * A) + rb.EXT_PIXELS
+    empty = ok & (qc < 0)
+    rx = torch.where(empty, -inf, torch.where(ok, rx, inf))
+    ry = torch.where(empty, -inf, torch.where(ok, ry, inf))
+    return torch.stack([rows[..., mx] - rx, rows[..., mx] + rx,
+                        rows[..., my] - ry, rows[..., my] + ry], dim=-1)
 
 
 def _rows(mode, mu, conic, opa, rng):
@@ -142,7 +173,7 @@ def test_extent_contains_every_active_pixel(rng, mode, case):
     rows = _rows(mode, mu, conic, opa, rng)
     px, py = _grid()
     active = _alpha(rows, px, py, mode) > 0
-    rect = rb.slot_extent(torch.from_numpy(rows), mode)
+    rect = slot_extent(torch.from_numpy(rows), mode)
     inside = ((px[None] >= rect[:, 0:1]) & (px[None] <= rect[:, 1:2])
               & (py[None] >= rect[:, 2:3]) & (py[None] <= rect[:, 3:4]))
     assert not bool((active & ~inside).any())
@@ -257,7 +288,7 @@ def test_cutoff_ending_on_a_warp_edge(mode):
     row = _iso_row(mode, 20.0, 10.0, 4.0, opa=1e-3)
     assert bool(rb.warp_culled(torch.from_numpy(row), mode, wx0, wx1, wy0,
                                wy1))
-    assert bool((rb.slot_extent(torch.from_numpy(row), mode)[0, [0, 2]]
+    assert bool((slot_extent(torch.from_numpy(row), mode)[0, [0, 2]]
                  == float("inf")).all())
 
 
@@ -279,7 +310,7 @@ def test_extent_contains_every_active_pixel_hypothesis(a, c, corr, opa, mx,
                  np.array([opa]), np.random.default_rng(0))
     px, py = _grid()
     active = _alpha(rows, px, py, mode)[0] > 0
-    x0, x1, y0, y1 = rb.slot_extent(torch.from_numpy(rows), mode)[0]
+    x0, x1, y0, y1 = slot_extent(torch.from_numpy(rows), mode)[0]
     inside = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
     assert not bool((active & ~inside).any())
     assert not bool((active & _culled_pixels(rows, mode)[0]).any())
