@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. build   compile every CUDA kernel of the port with nvcc (in parallel).
+1. build   compile every CUDA kernel of the port with nvcc (in parallel);
+           no kernel may need a stack frame or spill a register.
 2. kernel  hold each kernel (forward, backward and contribution blend,
            surfel and 3dgs modes) against its plain PyTorch version on the
            card: random tables at the kitti shape (600 tiles x 128 slots:
@@ -15,11 +16,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
            out of range; Gaussians that straddle warp rectangles and tile
            edges, lie outside the image or have degenerate or non-finite
            conics; 256 slots with a superblock of 32 and tiles that stop
-           early), small tables at tile sizes 8 and 32, and the real
-           tables of the first view of each cell. The
-           forward and backward wrappers must refuse attribute rows that do
-           not start at a multiple of 16 bytes. Forward tolerance: 1e-5 absolute on the rgb, normal and alpha
-           rows and on the transmittance; the robust rule of
+           early; a mask that leaves out slots below the count, which
+           occlude and are not counted by the contribution kernel), small
+           tables at tile sizes 8 and 32, and the real tables of the first
+           view of each cell. The three wrappers must refuse attribute
+           rows that do not start at a multiple of 16 bytes. Forward
+           tolerance: 1e-5 absolute on the rgb, normal and alpha rows and
+           on the transmittance; the robust rule of
            tests/test_raster_pallas.py:116-125 on the depth rows and the
            median depth. Backward (random cotangents) and contributions:
            2e-4 of each column's magnitude on all but 0.2% of the entries,
@@ -74,6 +77,7 @@ Prints the kernels' JSON line, the card's name and power limit, and last
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -229,17 +233,17 @@ def compare_bwd(torch, rb, attr16, bins, ntx, nty, mode, sup=256, label="",
 
 
 def compare_contrib(torch, rb, attr16, bins, ntx, nty, mode, sup=256,
-                    label=""):
+                    label="", tile=16):
     """Contribution kernel vs its plain version; tolerance as
     ``scaled_err`` (the magnitude is the largest contribution)."""
-    got = rb.blend_contrib(attr16, bins, ntx, nty, 16, mode, sup)
-    again = rb.blend_contrib(attr16, bins, ntx, nty, 16, mode, sup)
-    want = rb.blend_contrib_ref(attr16, bins, ntx, nty, 16, mode, sup)
+    got = rb.blend_contrib(attr16, bins, ntx, nty, tile, mode, sup)
+    again = rb.blend_contrib(attr16, bins, ntx, nty, tile, mode, sup)
+    want = rb.blend_contrib_ref(attr16, bins, ntx, nty, tile, mode, sup)
     torch.cuda.synchronize()
     e, r = scaled_err(f"{label} {mode} contrib", got[:, None], want[:, None])
     rerun = float((got - again).abs().max() / want.abs().max().clamp_min(
         1e-12))
-    log(f"kernel contrib {mode:6s} {label:18s} max_abs_err={e:.3e} "
+    log(f"kernel contrib {mode:6s} {label:22s} max_abs_err={e:.3e} "
         f"(rel {r:.2e}), run-to-run rel {rerun:.2e}, max "
         f"{float(want.max()):.3e}")
     return e, rerun
@@ -303,7 +307,9 @@ def edge_tables(torch, mode, seed):
     edges; conics that are degenerate (B^2 = A C), indefinite, zero or
     not finite; opacities around 1/255; every 5th tile stacked with wide
     near-opaque splats so that it stops at the first superblock boundary
-    when the superblock is 32."""
+    when the superblock is 32. The table's mask leaves out three slots in
+    ten below the count (they occlude, and the contribution kernel does
+    not count them; the other kernels do not read the mask)."""
     from pings_tpu_torch.ops.rasterize import TileBins
 
     rng = np.random.default_rng(seed)
@@ -349,21 +355,24 @@ def edge_tables(torch, mode, seed):
         tbl[t, :20] = ids
         counts[t] = kmax
     counts_t = torch.from_numpy(counts).cuda()
+    kept = torch.from_numpy(rng.random((T, kmax)) >= 0.3).cuda()
     bins = TileBins(torch.from_numpy(tbl).cuda(),
-                    torch.arange(kmax, device="cuda")[None]
-                    < counts_t[:, None], counts_t,
+                    (torch.arange(kmax, device="cuda")[None]
+                     < counts_t[:, None]) & kept, counts_t,
                     torch.zeros((), dtype=torch.int32, device="cuda"))
     return torch.from_numpy(a).cuda(), bins, ntx, nty
 
 
 def compare_tile_sizes(torch, rb, mode, seed=3):
-    """Forward and backward kernels against their plain versions at the
-    other tile sizes the wrappers take: 8 (64 threads, chunks of 16
-    slots) and 32 (1,024 threads, more than 48 KB of shared memory in the
-    backward), on small random tables."""
+    """Forward, backward and contribution kernels against their plain
+    versions at the other tile sizes the wrappers take: 8 (64 threads,
+    chunks of 16 slots) and 32 (1,024 threads, more than 48 KB of shared
+    memory in the backward), on small random tables whose mask leaves out
+    every fifth slot. Returns the contribution kernel's largest error."""
     from pings_tpu_torch.ops.rasterize import TileBins
 
     rng = np.random.default_rng(seed)
+    err = 0.0
     for tile in (8, 32):
         ntx, nty, kmax, n = 5, 3, 64, 600
         T = ntx * nty
@@ -383,10 +392,11 @@ def compare_tile_sizes(torch, rb, mode, seed=3):
         counts = rng.integers(0, kmax + 1, T).astype(np.int32)
         counts[:3] = [0, kmax, 17]
         counts_t = torch.from_numpy(counts).cuda()
+        slot = torch.arange(kmax, device="cuda")[None]
         bins = TileBins(
             torch.from_numpy(rng.integers(0, n, (T, kmax)).astype(
                 np.int32)).cuda(),
-            torch.arange(kmax, device="cuda")[None] < counts_t[:, None],
+            (slot < counts_t[:, None]) & (slot % 5 != 4),
             counts_t, torch.zeros((), dtype=torch.int32, device="cuda"))
         a = torch.from_numpy(a).cuda()
         label = f"tile {tile} ({tile * tile} threads)"
@@ -394,11 +404,14 @@ def compare_tile_sizes(torch, rb, mode, seed=3):
                       tile=tile)
         compare_bwd(torch, rb, a, bins, ntx, nty, mode, label=label,
                     tile=tile)
+        err = max(err, compare_contrib(torch, rb, a, bins, ntx, nty, mode,
+                                       label=label, tile=tile)[0])
+    return err
 
 
 def check_alignment(torch, rb, attr16, bins, ntx, nty, mode):
-    """The forward and backward wrappers refuse attribute rows that do
-    not start at a multiple of 16 bytes."""
+    """The three wrappers refuse attribute rows that do not start at a
+    multiple of 16 bytes."""
     flat = torch.empty(attr16.numel() + 1, device="cuda")
     off = flat[1:].view_as(attr16).copy_(attr16)
     T = bins.counts.shape[0]
@@ -406,7 +419,9 @@ def check_alignment(torch, rb, attr16, bins, ntx, nty, mode):
     calls = {"blend_fwd": lambda: rb.blend_fwd(off, bins, ntx, nty, 16, mode),
              "blend_bwd": lambda: rb.blend_bwd(
                  off, bins, torch.zeros((T, 8, 256), device="cuda"), z, z, z,
-                 ntx, nty, 16, mode)}
+                 ntx, nty, 16, mode),
+             "blend_contrib": lambda: rb.blend_contrib(off, bins, ntx, nty,
+                                                       16, mode)}
     for name, call in calls.items():
         try:
             call()
@@ -938,6 +953,12 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
+        # a register array that is not fully unrolled, or a register cap
+        # set too low, shows as a stack frame in local memory
+        spill = re.search(r"\b[1-9]\d* bytes (stack frame|spill)", text)
+        if spill:
+            raise AssertionError(f"{name}: the compiler reports "
+                                 f"{spill.group(0)}")
 
     # 2. kernels vs plain versions on random tables at the kitti shape --
     err = {(k, m): 0.0 for k in ("fwd", "bwd", "contrib") for m in rb.MODES}
@@ -952,9 +973,11 @@ def main():
             # the random tables' gradients reach 1e13 (plane depths near
             # 0): held by the relative rule, kept out of max_abs_err
             compare_bwd(torch, rb, a, bins, ntx, nty, mode, sup, label)
-            compare_contrib(torch, rb, a, bins, ntx, nty, mode, sup, label)
+            err["contrib", mode] = max(err["contrib", mode], compare_contrib(
+                torch, rb, a, bins, ntx, nty, mode, sup, label)[0])
         check_alignment(torch, rb, a, bins, ntx, nty, mode)
-        compare_tile_sizes(torch, rb, mode)
+        err["contrib", mode] = max(err["contrib", mode],
+                                   compare_tile_sizes(torch, rb, mode))
         a, bins, ntx, nty = edge_tables(torch, mode, seed=2)
         for sup in (256, 32):
             label = f"edge cases sup={sup}"
@@ -965,8 +988,10 @@ def main():
             # backward is held on the table with those entries zeroed
             compare_bwd(torch, rb, torch.nan_to_num(a, 0.0, 0.0, 0.0), bins,
                         ntx, nty, mode, sup, label)
-    log("blend_fwd and blend_bwd refuse attribute rows off a 16-byte "
-        "boundary")
+            err["contrib", mode] = max(err["contrib", mode], compare_contrib(
+                torch, rb, a, bins, ntx, nty, mode, sup, label)[0])
+    log("blend_fwd, blend_bwd and blend_contrib refuse attribute rows off a "
+        "16-byte boundary")
 
     # kitti: cam2 of scripts/make_validation_data.py:262-267
     T_c_l_kitti = np.eye(4)

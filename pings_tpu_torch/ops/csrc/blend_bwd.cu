@@ -73,30 +73,6 @@ namespace {
 
 using namespace blend;
 
-// Sum v[0..15] over the 32 lanes of a warp; lane l returns column l & 15.
-// Step `bit` pairs lane l with l ^ bit: the lane whose bit is clear keeps
-// the lower half of its columns and sends the upper half, its partner the
-// reverse, and each adds what it receives; after bits 8, 4, 2, 1 one
-// column is left per lane and the exchange with l ^ 16 completes it.
-template <int HALF>
-__device__ __forceinline__ void transpose_step(float (&v)[NCH], int wl) {
-  const bool up = (wl & HALF) != 0;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = up ? v[i] : v[i + HALF];
-    const float keep = up ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
-  }
-}
-
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[NCH], int wl) {
-  transpose_step<8>(v, wl);
-  transpose_step<4>(v, wl);
-  transpose_step<2>(v, wl);
-  transpose_step<1>(v, wl);
-  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
-}
-
 // slots whose gates are worked out together
 constexpr int BATCH = 2;
 

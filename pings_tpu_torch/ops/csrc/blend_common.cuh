@@ -1,6 +1,8 @@
-// Shared by blend_fwd.cu and blend_bwd.cu: the pixel layout of a block,
-// the staging of a chunk of attribute rows into shared memory, the
-// conservative test by which a warp skips a slot, and the slot's gate.
+// Shared by blend_fwd.cu, blend_bwd.cu and blend_contrib.cu: the pixel
+// layout of a block, the staging of a chunk of attribute rows into shared
+// memory, the conservative test by which a warp skips a slot, the slot's
+// gate, and (backward and contributions) the butterfly that sums 8 or 16
+// columns over a warp.
 
 #pragma once
 
@@ -180,6 +182,39 @@ __device__ __forceinline__ unsigned chunk_live(const float* rows, int nrows,
     }
   }
   return __ballot_sync(0xffffffffu, keep);
+}
+
+// Sum the N columns v[0..N-1] (N = 8 or 16) over the 32 lanes of a warp;
+// lane l returns column l & (N - 1). Step `bit` pairs lane l with l ^ bit:
+// the lane whose bit is clear keeps the lower half of its columns and sends
+// the upper half, its partner the reverse, and each adds what it receives;
+// after bits N/2 ... 1 one column is left per lane, and the exchanges with
+// l ^ N ... l ^ 16 complete it. N - 1 + log2(32 / N) shuffles where a tree
+// per column takes 5 N. Unrolled by templates: the columns stay in
+// registers only where every index is a constant.
+template <int HALF, int N>
+__device__ __forceinline__ void transpose_steps(float (&v)[N], int wl) {
+  if constexpr (HALF > 0) {
+    const bool up = (wl & HALF) != 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float send = up ? v[i] : v[i + HALF];
+      const float keep = up ? v[i + HALF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+    }
+    transpose_steps<HALF / 2>(v, wl);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[N], int wl) {
+  static_assert(N == 8 || N == 16, "8 or 16 columns");
+  transpose_steps<N / 2>(v, wl);
+  float x = v[0];
+#pragma unroll
+  for (int bit = N; bit < 32; bit <<= 1)
+    x = x + __shfl_xor_sync(0xffffffffu, x, bit);
+  return x;
 }
 
 }  // namespace blend

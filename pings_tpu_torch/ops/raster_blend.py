@@ -17,8 +17,7 @@ Column layouts (per Gaussian, 16 float32):
           12-14 plane-depth basis (ndx, ndy, nd0), 15 pad
 
 ``warp_culled`` is the plain version of the test by which a warp of the
-forward and backward kernels skips a slot whose Gaussian cannot reach its
-pixels.
+three kernels skips a slot whose Gaussian cannot reach its pixels.
 
 Each wrapper (``blend_fwd``, ``blend_bwd``, ``blend_contrib``) runs its
 CUDA kernel (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``,
@@ -289,15 +288,17 @@ def blend_bwd(attr16: torch.Tensor, bins: TileBins, g_out: torch.Tensor,
 def blend_contrib(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
                   tile: int, mode: str, sup: int = SUPER) -> torch.Tensor:
     """(N,) blend weight alpha * T of each Gaussian summed over every pixel
-    of every tile that lists it (forward only, no gradient). CUDA tensors
-    launch the kernel; CPU tensors take ``blend_contrib_ref``; any other
-    device raises."""
+    of every tile that lists it where ``bins.mask`` is set (forward only,
+    no gradient; a slot below the tile's count that the mask leaves out
+    still occludes). CUDA tensors launch the kernel; CPU tensors take
+    ``blend_contrib_ref``; any other device raises."""
     _check(attr16, bins, ntx, nty, tile, mode)
     attr16 = attr16.detach()
     dev = attr16.device
     if dev.type == "cpu":
         return blend_contrib_ref(attr16, bins, ntx, nty, tile, mode, sup)
-    attr16, tbl, counts = _cuda_inputs("blend_contrib", attr16, bins)
+    attr16, tbl, counts = _cuda_inputs("blend_contrib", attr16, bins,
+                                       align=16)
     mask = bins.mask
     if mask.device != dev or mask.dtype != torch.bool \
             or mask.shape != tbl.shape:

@@ -1,33 +1,36 @@
 #!/usr/bin/env python3
-"""Set the port's forward and backward blend kernels, as they stand, beside
-those of another checkout on one GPU.
+"""Set the port's forward, backward and contribution blend kernels, as they
+stand, beside those of another checkout on one GPU.
 
-    python3 scripts/torch_blend_bench.py --baseline DIR [--rounds 7]
-                                         [--launches 20] [--out FILE]
+    python3 scripts/torch_blend_bench.py --baseline DIR [--kinds fwd bwd]
+                                         [--rounds 7] [--launches 20]
+                                         [--out FILE]
 
 ``--baseline DIR`` is the root of another checkout of this repository (for
 example ``git archive <commit> pings_tpu_torch/ops/csrc | tar -x -C DIR``);
-its ``pings_tpu_torch/ops/csrc/blend_{fwd,bwd}.cu`` are built with this
-checkout's flags and called through this checkout's wrappers, so their C
+its ``pings_tpu_torch/ops/csrc/blend_{fwd,bwd,contrib}.cu`` are built with
+this checkout's flags and called through this checkout's wrappers, so their C
 interface must be the same. Without ``--baseline`` only the current
-kernels are timed.
+kernels are timed. ``--kinds`` names the kernels to build, hold and time
+(default: all three).
 
 Tables: the first view of the kitti and the replica checkpoints as
 ``render()`` builds them (surfel mode) and the kitti view in 3dgs mode.
 Both versions are first held against the plain PyTorch version on the real
-tables (forward 1e-5 absolute, backward 2e-4 of a column's magnitude).
-Then they are timed in turns within each round (a, b, a, b, ...),
-``--launches`` launches per turn between two CUDA events. Two clocks are
-printed: ``queued`` puts a spin kernel ahead of the launches, so that the
-host has enqueued all of them before the first starts and the time is the
-card's alone (kernel, the wrapper's output allocation and, in the
-backward, the zero fill of the gradient); ``eager`` launches onto an idle
-card as a caller would, and reads the larger of the host's time per call
-and the card's. Also printed: the share of the warp-slots that the
-kernels' cull skips on each table beside the share that holds no pixel
-with alpha > 0, the card's name, power limit and SM clock. One JSON object
-with every time goes to ``--out`` (default ``build/blend_bench.json``) and
-the log beside it.
+tables (forward 1e-5 absolute, backward 2e-4 of a column's magnitude,
+contributions 2e-4 of the largest). Then they are timed in turns within
+each round (a, b, a, b, ...), ``--launches`` launches per turn between two
+CUDA events. Two clocks are printed: ``queued`` puts a spin kernel ahead of
+the launches, so that the host has enqueued all of them before the first
+starts and the time is the card's alone (kernel, the wrapper's output
+allocation and the zero fill of the backward's gradient and of the
+contributions); ``eager`` launches onto an idle card as a caller would, and
+reads the larger of the host's time per call and the card's. Also printed:
+the share of the warp-slots that the kernels' cull skips on each table
+beside the share that holds no pixel with alpha > 0, the zero fills alone,
+the card's name, power limit and SM clock. One JSON object with every time
+goes to ``--out`` (default ``build/blend_bench.json``) and the log beside
+it.
 """
 
 import argparse
@@ -45,7 +48,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-KINDS = ("fwd", "bwd")
+KINDS = ("fwd", "bwd", "contrib")
 
 
 def cull_stats(torch, rb, attr16, bins, ntx, mode, tile=16):
@@ -99,6 +102,7 @@ def build_baseline(_build, root, name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
+    ap.add_argument("--kinds", nargs="+", choices=KINDS, default=KINDS)
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--out", type=Path,
@@ -126,15 +130,15 @@ def main():
         cs.smi("clocks.sm,clocks.max.sm"))
 
     libs = {"current": {f"blend_{k}": _build.load(f"blend_{k}")
-                        for k in KINDS}}
+                        for k in args.kinds}}
     if args.baseline:
         libs["baseline"] = {f"blend_{k}": build_baseline(
-            _build, args.baseline, f"blend_{k}") for k in KINDS}
+            _build, args.baseline, f"blend_{k}") for k in args.kinds}
     load = _build.load
 
     @contextmanager
     def using(label, kind=None):
-        """The wrappers load ``label``'s library of ``kind`` (None: both;
+        """The wrappers load ``label``'s library of ``kind`` (None: all;
         the backward's checks and cotangents come from a forward launch)."""
         picked = {n: lib for n, lib in libs[label].items()
                   if kind is None or n == f"blend_{kind}"}
@@ -193,20 +197,28 @@ def main():
         rho = (g_out * out).sum(dim=1, keepdim=True)
         cot = (g_out, g_trans, rho, trans, ntx, nty, 16, mode)
         fns = {"fwd": lambda: rb.blend_fwd(attr16, bins, ntx, nty, 16, mode),
-               "bwd": lambda: rb.blend_bwd(attr16, bins, *cot)}
+               "bwd": lambda: rb.blend_bwd(attr16, bins, *cot),
+               "contrib": lambda: rb.blend_contrib(attr16, bins, ntx, nty, 16,
+                                                   mode)}
         for label in libs:
             with using(label):
-                cs.compare_blend(torch, rb, attr16, bins, ntx, nty, mode,
-                                 label=f"{tname} {label}")
-                cs.compare_bwd(torch, rb, attr16, bins, ntx, nty, mode,
-                               label=f"{tname} {label}")
-        # the wrapper's fixed device work beside the backward kernel
+                for kind, compare in (("fwd", cs.compare_blend),
+                                      ("bwd", cs.compare_bwd),
+                                      ("contrib", cs.compare_contrib)):
+                    if kind in args.kinds:
+                        compare(torch, rb, attr16, bins, ntx, nty, mode,
+                                label=f"{tname} {label}")
+        # the wrappers' fixed device work beside the kernels
         fill = timed(lambda: torch.zeros((n, 16), device="cuda"),
                      args.launches, True)
+        fill_c = timed(lambda: torch.zeros((n,), device="cuda"),
+                       args.launches, True)
         log(f"{tname}: zero fill of the ({n}, 16) gradient {fill:.5f} ms "
-            "(queued), inside every backward time below")
+            f"(queued), inside every backward time below; of the ({n},) "
+            f"contributions {fill_c:.5f} ms, inside every contrib time")
         results["times"][f"{tname} zero_fill"] = fill
-        for kind in KINDS:
+        results["times"][f"{tname} zero_fill_contrib"] = fill_c
+        for kind in args.kinds:
             for queued in (True, False):
                 rows = {label: [] for label in libs}
                 for _ in range(args.rounds):

@@ -14,6 +14,12 @@
   its 16 column terms, emulated lane by lane with the kernel's index
   arithmetic: lane c (and c + 16) ends with column c's sum (float64 sums
   of integers, exact).
+- The contribution kernel's batched sum, by the same emulation: the slots
+  of a chunk that had a hit go through the 8-column butterfly 8 at a time,
+  and every slot's sum ends at that slot's entry of the warp's partials.
+- Wherever a warp skips a slot, the plain version's blend weight
+  alpha * T is exactly 0 on the warp's 32 pixels: the contribution kernel
+  loses nothing to the cull.
 """
 
 import numpy as np
@@ -22,6 +28,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from pings_tpu_torch.ops import raster_blend as rb
+from pings_tpu_torch.ops.rasterize import TileBins
 from test_torch_raster_blend import random_table
 
 W, H = 64, 48       # the image of the pixel grids below
@@ -317,12 +324,13 @@ def test_extent_contains_every_active_pixel_hypothesis(a, c, corr, opa, mx,
 
 
 def _butterfly(v):
-    """The kernel's ``warp_transpose_sum`` on (32 lanes, 16 columns):
-    returns what each lane ends with. Index arithmetic only: a shuffle
-    with ``lane ^ bit`` is a gather."""
+    """The kernels' ``warp_transpose_sum`` on (32 lanes, N columns), N = 8
+    or 16: returns what each lane ends with. Index arithmetic only: a
+    shuffle with ``lane ^ bit`` is a gather."""
     v = v.copy()
     lanes = np.arange(32)
-    half = 8
+    n_col = v.shape[1]
+    half = n_col // 2
     while half >= 1:
         up = (lanes & half) != 0
         new = v.copy()
@@ -332,7 +340,12 @@ def _butterfly(v):
             new[:, i] = keep + send[lanes ^ half]
         v = new
         half //= 2
-    return v[:, 0] + v[lanes ^ 16, 0]
+    x = v[:, 0]
+    bit = n_col
+    while bit < 32:
+        x = x + x[lanes ^ bit]
+        bit *= 2
+    return x
 
 
 @pytest.mark.parametrize("live", [14, 15, 16])
@@ -344,3 +357,96 @@ def test_butterfly_leaves_column_c_on_lane_c(rng, live):
     np.testing.assert_array_equal(got[:16], want)
     np.testing.assert_array_equal(got[16:], want)
     assert (got[live:16] == 0).all()
+
+
+CONTRIB_BATCH = 8    # BATCH of csrc/blend_contrib.cu
+
+
+def _batched_partials(w, hit):
+    """The contribution kernel's plan for one warp and one chunk: ``w``
+    (32 lanes, 32 slots) weights, ``hit`` the slots with a hit in some
+    lane, one bit each. The slots are taken in order, ``CONTRIB_BATCH`` at
+    a time, one butterfly column each; slot j's column is its rank among
+    the batch's slots, column r's sum lies on lane r, lane j fetches it
+    and stores it at entry j of the partials. Returns (partials with NaN
+    where nothing was written, mask of the entries written, the padding
+    columns' sums of every batch)."""
+    part = np.full(32, np.nan)
+    hits, padding, left = 0, [], hit
+    while left:
+        v = np.zeros((32, CONTRIB_BATCH))
+        batch = 0
+        for i in range(CONTRIB_BATCH):
+            if not left:
+                break
+            j = (left & -left).bit_length() - 1
+            left &= left - 1
+            v[:, i] = w[:, j]
+            batch |= 1 << j
+        mine = _butterfly(v)
+        n_used = bin(batch).count("1")
+        padding += [mine[lane] for lane in range(32)
+                    if lane % CONTRIB_BATCH >= n_used]
+        for lane in range(32):
+            r = bin(batch & ((1 << lane) - 1)).count("1")
+            fetched = mine[r]
+            if (batch >> lane) & 1:
+                part[lane] = fetched
+        hits |= batch
+    return part, hits, np.array(padding)
+
+
+@pytest.mark.parametrize("n_hit", [0, 1, 15, 16, 17, 32])
+def test_contrib_batched_sum_lands_on_its_slot(rng, n_hit):
+    slots = np.sort(rng.choice(32, n_hit, replace=False))
+    hit = sum(1 << int(j) for j in slots)
+    w = np.zeros((32, 32))
+    w[:, slots] = rng.integers(1, 1000, (32, n_hit))
+    part, hits, padding = _batched_partials(w, hit)
+    assert hits == hit
+    written = ~np.isnan(part)
+    np.testing.assert_array_equal(np.flatnonzero(written), slots)
+    np.testing.assert_array_equal(part[written], w.sum(axis=0)[slots])
+    assert (padding == 0).all()
+    # batches needed: 8 slots a butterfly
+    assert len(padding) == 32 * (-n_hit % CONTRIB_BATCH) // CONTRIB_BATCH
+
+
+@pytest.mark.parametrize("mode", ["surfel", "3dgs"])
+def test_culled_warp_slots_carry_no_blend_weight(rng, mode):
+    """alpha * T of the plain scan, slot by slot with the running T, is
+    exactly 0 on all 32 pixels of a warp's 8 x 4 block wherever
+    ``warp_culled`` lets that warp skip the slot; and the per-slot sums
+    without those pixels are the plain version's contributions."""
+    T, kmax, tile = 12, 48, 16
+    a, tbl, counts, ntx = random_table(rng, mode, T, kmax)
+    a[::7, GEOM[mode][2]] = a[::7, GEOM[mode][4]] = 1e-3      # wide ones
+    n = a.shape[0]
+    at = torch.from_numpy(a)
+    idx = torch.from_numpy(np.minimum(tbl, n - 1)).long()
+    rows = at[idx]                                            # (T, K, 16)
+    px, py = rb._pixel_grid(T, ntx, tile, "cpu")
+    alpha, _ = rb.slot_alpha(lambda c: rows[:, :, c:c + 1], px[:, None],
+                             py[:, None], mode)               # (T, K, P)
+    on = torch.arange(kmax)[None] < torch.from_numpy(counts)[:, None]
+    alpha = torch.where(on[:, :, None], alpha, torch.zeros(()))
+    trans = torch.ones(T, tile * tile)
+    w = []
+    for k in range(kmax):
+        w.append(alpha[:, k] * trans)
+        trans = trans * (1.0 - alpha[:, k])
+    w = torch.stack(w, dim=1)                                 # (T, K, P)
+    rects, owner = _warp_rects(ntx, tile, T)
+    r = rects[:, None]
+    culled = rb.warp_culled(rows[:, :, None], mode, r[..., 0], r[..., 1],
+                            r[..., 2], r[..., 3])[:, :, owner]
+    assert bool(culled.any()) and bool((w > 0).any())
+    assert bool((w[culled] == 0).all())
+    kept = torch.where(culled, torch.zeros(()), w).sum(dim=2)
+    want = torch.zeros(n).index_add_(0, idx.reshape(-1), kept.reshape(-1))
+    bins = TileBins(torch.from_numpy(tbl), on, torch.from_numpy(counts),
+                    torch.zeros((), dtype=torch.int32))
+    got = rb.blend_contrib(at, bins, ntx, T // ntx, tile, mode, 256)
+    # two sums of the same 256 float32 weights per slot: 1e-5 relative
+    # allows for another order of summation
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
