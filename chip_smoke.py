@@ -58,6 +58,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
            afresh. Views must be finite with mean alpha > 0.2; every loss
            finite, no skipped step, PSNR of the last 5 iterations no more
            than 0.5 dB under the first 5.
+   SLAM:  ``SlamSystem(cfg).process_frame`` on cuda from frame 0, the
+           system building its own map, decoders, pool and tracker:
+           (a) kitti at full width, ``configs/kitti_synth.yaml`` with
+           ``pgo_on`` off, frames 0-5 of the circuit (the scans of
+           ``kitti_scan``, rng = frame id, and the camera images of
+           ``kitti_frame``, without depth or sky as the kitti loader gives
+           them): every frame from 1 on tracks valid, the ATE against the
+           ground truth (anchored at its start, no alignment) is under
+           0.28 m and 1.0 deg (just above the spread over the decoders'
+           seed: the JAX package reads 0.10-0.25 m on these frames, the
+           port 0.14-0.27 m), every loss is finite and the surfel
+           forward, backward and contribution kernels were launched; per
+           frame the host-clock ms (a synchronize on both sides), the
+           stage ms, the tracker's iterations, valid ratio, residual and
+           device-to-host reads, the map's count, the new-observation
+           ratio, the SDF and GS iterations, the online PSNR and the
+           launches; the median ms per mapped frame over frames 1-5 and the
+           peak device memory. (b) LiDAR only, ``small_cfg(gs_on=False)``
+           on the ``"12:line"`` synthetic sequence: tracking valid from
+           frame 2, ATE under 0.35 m and 4 deg, more than 1,000 points.
+           (c) GS-SLAM, ``small_cfg(gs_on=True, gs_iters=8)`` on
+           ``"6:line"``: at least 4 online PSNRs, all finite, the last
+           over 12 dB. The bars of (b) and (c) are the JAX package's own
+           (tests/test_pipeline.py:34-51, 83-96).
 5. times   per-view ms and per-stage ms of ``render()``; ms per GS
            iteration (host clock with a synchronize, fresh and cached
            table) and per-stage ms (CUDA events recorded by the step's
@@ -934,6 +958,174 @@ def train_times(torch, system, frames, fid, iters):
     return med(fresh[1:] or fresh), med(cached), st, len(fresh), len(cached)
 
 
+def small_cfg(**kw):
+    """The small configuration of the JAX package's pipeline tests
+    (tests/test_pipeline.py:12-29)."""
+    from pings_tpu_torch.config import Config
+
+    base = dict(
+        max_points=1 << 16, buffer_size=1 << 18, voxel_size_m=0.3,
+        feature_dim=8, color_feature_dim=8, bs=2048,
+        geo_mlp_hidden_dim=32, color_mlp_hidden_dim=32,
+        gaussian_mlp_hidden_dim=32,
+        pool_capacity=1 << 16, lr=0.02, lr_mlp_base=2e-3,
+        surface_sample_range_m=-1.0, free_sample_end_dist_m=-1.0,
+        sigma_sigmoid_m=-1.0,
+        min_range=0.5, max_range=25.0, min_z=-5.0,
+        vox_down_m=0.1, source_vox_down_m=0.4,
+        mapping_iters=15, init_iter_ratio=40,
+        max_local_points=4096, spawn_n_gaussian=4,
+        gs_iters=10, gs_sdf_sample_count=128, max_gs_per_tile=256,
+        mesh_min_nn=3, data_loader_name="synthetic",
+    )
+    base.update(kw)
+    return Config.load(overrides=base)
+
+
+def slam_run(torch, rb, name, system, frames, verbose=True):
+    """The frames through ``system.process_frame``; the launch counters
+    are zeroed just before and read just after. Returns (reports, host ms
+    per frame, launches (fwd, bwd, contrib) per mode)."""
+    reps, ms = [], []
+    rb.reset_launches()
+    for frame in frames:
+        before = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
+                  sum(rb.CONTRIB_LAUNCHES.values()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = system.process_frame(frame)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reps.append(rep)
+        if verbose:
+            n = [sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
+                 sum(rb.CONTRIB_LAUNCHES.values())]
+            mt = rep.metrics
+            log(f"slam {name} frame {rep.frame_id}: {ms[-1]:.1f} ms, stages "
+                + ", ".join(f"{k}={v * 1e3:.1f}"
+                            for k, v in rep.timings.items())
+                + f" ms; valid {rep.tracking_valid}, track iterations "
+                f"{mt.get('track_iter', 0)}, valid ratio "
+                f"{mt.get('track_valid_ratio', float('nan')):.3f}, residual "
+                f"{mt.get('track_res_m', float('nan')):.4f} m, syncs "
+                f"{mt.get('track_syncs', 0)}; map {rep.n_points} points, "
+                f"new_obs_ratio {mt.get('new_obs_ratio', float('nan')):.3f}, "
+                f"sdf_iters {mt.get('sdf_iters', 0)}, gs_iters "
+                f"{mt.get('gs_iters', 0)}, gs_psnr "
+                f"{mt.get('gs_psnr', float('nan')):.3f}, sdf_bce "
+                f"{mt.get('sdf_bce', float('nan')):.5f}; launches "
+                f"fwd/bwd/contrib {[a - b for a, b in zip(n, before)]}")
+    launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
+                    rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    for rep in reps:
+        bad = [k for k in ("sdf_bce", "gs_psnr", "gs_l1", "track_res_m")
+               if k in rep.metrics and not np.isfinite(rep.metrics[k])]
+        if bad or "gs_nonfinite_steps" in rep.metrics:
+            raise AssertionError(f"slam {name} frame {rep.frame_id}: "
+                                 f"non-finite {bad} or skipped steps "
+                                 f"{rep.metrics}")
+    if system.aborted:
+        raise AssertionError(f"slam {name}: aborted, {system.abort_reason}")
+    return reps, ms, launches
+
+
+def slam_kitti(torch, rb):
+    """kitti at full width, frames 0-5, through process_frame."""
+    from pings_tpu_torch.config import Config
+    from pings_tpu_torch.eval.traj import absolute_error
+    from pings_tpu_torch.slam.pipeline import SlamSystem
+
+    from pings_tpu_torch.data.synthetic import kitti_sequence
+
+    t0 = time.perf_counter()
+    frames = kitti_sequence(6)
+    log(f"slam kitti: ray-cast 6 frames in {time.perf_counter() - t0:.1f} s, "
+        f"scans of {[len(f['points']) for f in frames]} points")
+    cfg = Config.load(os.path.join(ROOT, "configs", "kitti_synth.yaml"),
+                      overrides={"pgo_on": False})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    system = SlamSystem(cfg, device="cuda")
+    reps, ms, launches = slam_run(torch, rb, "kitti", system, frames)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    gt = [f["gt_pose"] for f in frames]
+    ate = absolute_error(system.poses, gt, align=False)
+    log("slam kitti: position error per frame (m) "
+        + str([np.round(p[:3, 3] - g[:3, 3], 4).tolist()
+               for p, g in zip(system.poses, gt)]))
+    stage = {k: statistics.median(r.timings[k] * 1e3 for r in reps[1:])
+             for k in reps[1].timings}
+    syncs = [r.metrics.get("track_syncs", 0) for r in reps[1:]]
+    log(f"slam kitti: median ms per mapped frame (frames 1-5) "
+        f"{statistics.median(ms[1:]):.1f}; frame 0 {ms[0]:.1f} ms; median "
+        "stage ms " + ", ".join(f"{k}={v:.1f}" for k, v in stage.items())
+        + f"; tracker device-to-host reads per frame {syncs}; ATE "
+        f"{ate['ate_trans_rmse_m']:.4f} m {ate['ate_rot_rmse_deg']:.4f} deg; "
+        f"map {reps[-1].n_points} points; peak device memory {mem:.3f} GiB; "
+        f"launches {launches}; card {smi('name,power.limit')}")
+    lost = [r.frame_id for r in reps[1:] if not r.tracking_valid]
+    if lost:
+        raise AssertionError(f"slam kitti: lost track at frames {lost}")
+    # the ATE over these frames depends on the decoders' seed in both
+    # packages (scripts/slam_kitti_seeds.py, seeds 42 and 0-5: the JAX
+    # package on the CPU 0.104-0.250 m, the port on an H100 0.137-0.270 m,
+    # 0.22 at this seed): the bar sits just above that spread
+    if not (ate["ate_trans_rmse_m"] < 0.28 and ate["ate_rot_rmse_deg"] < 1.0):
+        raise AssertionError(f"slam kitti: ATE {ate}")
+    fwd, bwd, contrib = launches["surfel"]
+    if not (fwd and bwd and contrib):
+        raise AssertionError(f"slam kitti: surfel kernels not all launched "
+                             f"{launches}")
+    # frame 0 is held out of the keyframes (gs_eval_hold_out_every 5), so
+    # the first GS iterations run on frame 1
+    if not all("gs_psnr" in r.metrics for r in reps[1:]):
+        raise AssertionError("slam kitti: a frame trained no Gaussians")
+    return launches
+
+
+def slam_small(torch, rb):
+    """The JAX package's two pipeline bars on the synthetic world."""
+    from pings_tpu_torch.data.synthetic import SyntheticDataset
+    from pings_tpu_torch.eval.traj import absolute_error
+    from pings_tpu_torch.slam.pipeline import SlamSystem
+
+    cfg = small_cfg(gs_on=False, track_on=True, pgo_on=False)
+    ds = SyntheticDataset("12:line")
+    system = SlamSystem(cfg, device="cuda")
+    t0 = time.perf_counter()
+    reps, ms, lid = slam_run(torch, rb, "12:line", system,
+                             [ds[i] for i in range(len(ds))], verbose=False)
+    ate = absolute_error(system.poses, ds.gt_poses(), align=False)
+    lost = [r.frame_id for r in reps if not r.tracking_valid]
+    log(f"slam 12:line (LiDAR only): {time.perf_counter() - t0:.1f} s, ATE "
+        f"{ate['ate_trans_rmse_m']:.4f} m {ate['ate_rot_rmse_deg']:.4f} deg, "
+        f"map {int(system.m.count)} points, lost {lost}, median frame ms "
+        f"{statistics.median(ms[1:]):.1f}")
+    if [f for f in lost if f >= 2]:
+        raise AssertionError(f"slam 12:line: lost track at {lost}")
+    if not (ate["ate_trans_rmse_m"] < 0.35 and ate["ate_rot_rmse_deg"] < 4.0
+            and int(system.m.count) > 1000):
+        raise AssertionError(f"slam 12:line: ATE {ate}, "
+                             f"{int(system.m.count)} points")
+
+    cfg = small_cfg(gs_on=True, track_on=True, pgo_on=False, gs_iters=8,
+                    freeze_after_frame=100)
+    ds = SyntheticDataset("6:line")
+    system = SlamSystem(cfg, device="cuda")
+    t0 = time.perf_counter()
+    reps, ms, launches = slam_run(torch, rb, "6:line", system,
+                                  [ds[i] for i in range(len(ds))],
+                                  verbose=False)
+    psnrs = [r.metrics["gs_psnr"] for r in reps if "gs_psnr" in r.metrics]
+    log(f"slam 6:line (GS-SLAM): {time.perf_counter() - t0:.1f} s, PSNR "
+        f"{[round(x, 3) for x in psnrs]}, valid "
+        f"{[r.tracking_valid for r in reps]}, launches {launches}, median "
+        f"frame ms {statistics.median(ms[1:]):.1f}")
+    if len(psnrs) < 4 or not np.isfinite(psnrs).all() or not psnrs[-1] > 12.0:
+        raise AssertionError(f"slam 6:line: PSNRs {psnrs}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1075,9 +1267,13 @@ def main():
     c_3 = train_path(torch, rb, "kitti 3d_gs", sys_3, train_frames, 8)
     del sys_3
     torch.cuda.empty_cache()
+    # SLAM from frame 0 through process_frame
+    l_k = slam_kitti(torch, rb)
+    l_s = slam_small(torch, rb)
     for kind, i in (("fwd", 0), ("bwd", 1), ("contrib", 2)):
-        launches[kind, "surfel"] = launches.get((kind, "surfel"), 0) + c_s[i]
-        launches[kind, "3dgs"] = launches.get((kind, "3dgs"), 0) + c_3[i]
+        for mode, c in (("surfel", c_s), ("3dgs", c_3)):
+            launches[kind, mode] = (launches.get((kind, mode), 0) + c[i]
+                                    + l_k[mode][i] + l_s[mode][i])
 
     # 5. stages, real tables, kernel times --------------------------------
     log("SM clock before the kernel rounds (now, max): "

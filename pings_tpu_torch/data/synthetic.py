@@ -7,31 +7,18 @@ that the port can train on the real scenes without the JAX package:
 ``render_pinhole`` (:63), ``circuit_path`` (:158), ``circuit_world``
 (:200), ``_circuit_point`` (:238) and the camera and LiDAR set-up of
 ``make_kitti`` (:253-318, here ``kitti_rig``, ``kitti_poses``,
-``kitti_scan`` and ``kitti_frame``). Worlds are lists of analytic
-primitives (planes, boxes, spheres, a room shell) that are ray-cast.
+``kitti_scan`` and ``kitti_frame``), and ``SyntheticDataset``
+(:128-224), the ``"N:line|circle"`` sequences of the default world. Worlds
+are lists of analytic primitives (planes, boxes, spheres, a room shell)
+that are ray-cast.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def so3_exp(w: np.ndarray) -> np.ndarray:
-    """Rodrigues: axis-angle (3,) -> rotation matrix (float64)."""
-    theta = np.linalg.norm(w)
-    if theta < 1e-12:
-        return np.eye(3)
-    k = w / theta
-    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
-    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
-
-
-def se3_inv(T: np.ndarray) -> np.ndarray:
-    R, t = T[:3, :3], T[:3, 3]
-    Ti = np.eye(4)
-    Ti[:3, :3] = R.T
-    Ti[:3, 3] = -R.T @ t
-    return Ti
+from pings_tpu_torch.utils import pose as hp
+from pings_tpu_torch.utils.pose import se3_inv, so3_exp
 
 
 def _ray_scene(origins: np.ndarray, dirs: np.ndarray, objects):
@@ -139,6 +126,92 @@ def default_world():
         {"kind": "sphere", "center": np.array([0.0, 8.0, 2.0]),
          "radius": 2.0, "tint": -1.0},
     ]
+
+
+class SyntheticDataset:
+    """Frames of the default world from a straight or circular path.
+    ``sequence`` is ``"<n_frames>[:<circle|line>]"``. A frame is the dict
+    ``SlamSystem.process_frame`` takes: a 32-beam LiDAR scan with 1 cm of
+    range noise and a 160x120 pinhole camera looking along the body's +x,
+    with the ground-truth pose."""
+
+    CAM = "cam"
+
+    def __init__(self, sequence: str = "40:circle", n_beams: int = 32,
+                 n_azimuth: int = 512, width: int = 160, height: int = 120,
+                 seed: int = 0):
+        parts = (sequence or "40:circle").split(":")
+        self.n_frames = int(parts[0]) if parts[0] else 40
+        self.traj = parts[1] if len(parts) > 1 else "circle"
+        self.objects = default_world()
+        self.n_beams = n_beams
+        self.n_azimuth = n_azimuth
+        self.width, self.height = width, height
+        self.rng = np.random.default_rng(seed)
+        self.K = np.array([[140.0, 0, width / 2],
+                           [0, 140.0, height / 2],
+                           [0, 0, 1]])
+        # camera looks along +x of the body frame (lidar frame = body)
+        self.T_c_l = np.eye(4)
+        self.T_c_l[:3, :3] = np.array([[0.0, -1, 0], [0, 0, -1], [1, 0, 0]])
+        self._poses = [self._pose(i) for i in range(self.n_frames)]
+
+    def _pose(self, i: int) -> np.ndarray:
+        if self.traj == "line":
+            return hp.se3_exp(np.array([0.4 * i, 0, 0, 0, 0, 0])) @ \
+                hp.se3_exp(np.array([0, 0, 1.2, 0, 0, 0]))
+        # circle of radius 6 around (3, 0)
+        ang = 2 * np.pi * i / max(self.n_frames, 1)
+        T = np.eye(4)
+        T[:3, :3] = hp.so3_exp(np.array([0, 0, ang + np.pi / 2]))
+        T[:3, 3] = [3 + 6 * np.cos(ang), 6 * np.sin(ang), 1.2]
+        return T
+
+    def __len__(self):
+        return self.n_frames
+
+    @property
+    def cam_names(self):
+        return [self.CAM]
+
+    def gt_poses(self):
+        return [p.copy() for p in self._poses]
+
+    def _lidar_dirs(self):
+        el = np.radians(np.linspace(-25, 15, self.n_beams))
+        az = np.linspace(-np.pi, np.pi, self.n_azimuth, endpoint=False)
+        AZ, EL = np.meshgrid(az, el)
+        d = np.stack([np.cos(EL) * np.cos(AZ), np.cos(EL) * np.sin(AZ),
+                      np.sin(EL)], -1).reshape(-1, 3)
+        ts = ((AZ.reshape(-1) + np.pi) / (2 * np.pi)).astype(np.float32)
+        return d.astype(np.float64), ts
+
+    def __getitem__(self, idx: int) -> dict:
+        T = self._poses[idx]
+        dirs_l, point_ts = self._lidar_dirs()
+        dirs_w = dirs_l @ T[:3, :3].T
+        origins = np.tile(T[:3, 3], (len(dirs_w), 1))
+        t, hit, _ = _ray_scene(origins, dirs_w, self.objects)
+        rng_noise = self.rng.normal(0, 0.01, len(t))
+        t_noisy = t + rng_noise * hit
+        pts_l = (dirs_l * t_noisy[:, None]).astype(np.float32)
+
+        # camera image by ray casting through pixels
+        T_w_c = hp.se3_inv(self.T_c_l @ hp.se3_inv(T))
+        img, depth = render_pinhole(T_w_c, self.K, self.width, self.height,
+                                    self.objects)
+        sky = (depth <= 0).astype(np.float32)
+        return {
+            "points": pts_l[hit],
+            "point_ts": point_ts[hit],
+            "img": {self.CAM: img},
+            "depth": {self.CAM: depth},
+            "sky": {self.CAM: sky},
+            "K": {self.CAM: self.K},
+            "T_c_l": {self.CAM: self.T_c_l},
+            "gt_pose": T.copy(),
+            "sensor_ts": float(idx) * 0.1,
+        }
 
 
 def room_world(texture: str = "checker"):
@@ -323,3 +396,22 @@ def kitti_frame(T: np.ndarray, objects):
     T_c_l, K, W, H = kitti_rig()
     img, depth = render_pinhole(T @ se3_inv(T_c_l), K, W, H, objects)
     return img, depth, (depth <= 0).astype(np.float32)
+
+
+def kitti_sequence(n_frames: int):
+    """Frames 0..n_frames-1 of the kitti circuit as the kitti loader gives
+    them to ``SlamSystem.process_frame``: the LiDAR scan (noise drawn with
+    the frame id as seed) and the camera image, without depth or sky, with
+    the ground-truth pose."""
+    objects = circuit_world()
+    poses = kitti_poses(n_frames)
+    T_c_l, K, _, _ = kitti_rig()
+    frames = []
+    for fid in range(n_frames):
+        img, _, _ = kitti_frame(poses[fid], objects)
+        frames.append({
+            "points": kitti_scan(poses[fid], objects,
+                                 np.random.default_rng(fid)),
+            "img": {"cam2": img}, "K": {"cam2": K}, "T_c_l": {"cam2": T_c_l},
+            "gt_pose": poses[fid]})
+    return frames

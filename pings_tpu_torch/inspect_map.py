@@ -78,7 +78,7 @@ def load_system(run_dir: str, device: str | torch.device = "cuda",
     cfg = Config.load(cfg_file) if os.path.exists(cfg_file) else Config()
     cfg.silence = True
     cfg.gs_on = cfg.gs_on or gs_on
-    system = SlamSystem(cfg, device=device)
+    system = SlamSystem(cfg, device=device, fresh=False)
     ckpt = os.path.join(run_dir, "model", "pin_map.npz")
     if not os.path.exists(ckpt):
         cands = glob.glob(os.path.join(run_dir, "**", "pin_map.npz"),

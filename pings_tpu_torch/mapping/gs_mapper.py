@@ -27,7 +27,8 @@ import torch
 from pings_tpu_torch import resolve_device
 from pings_tpu_torch.mapping import losses
 from pings_tpu_torch.mapping import pool as rp
-from pings_tpu_torch.mapping.sdf_mapper import AdamW, guard_nonfinite
+from pings_tpu_torch.mapping.sdf_mapper import (
+    AdamW, guard_nonfinite, rebind_leaves)
 from pings_tpu_torch.models import field
 from pings_tpu_torch.models import neural_points as npm
 from pings_tpu_torch.models.renderer import (
@@ -131,16 +132,7 @@ def rebind_gs_params(opt: AdamW, old: Dict, new: Dict) -> None:
     """Point the optimizer at the leaves of ``new`` where they are other
     tensors than those of ``old`` (same structure); the moments and step
     counts move with them."""
-    swap = {id(a): b for a, b in zip(param_leaves(old), param_leaves(new))
-            if a is not b}
-    if not swap:
-        return
-    for group in opt.param_groups:
-        for i, t in enumerate(group["params"]):
-            if id(t) in swap:
-                b = swap[id(t)]
-                group["params"][i] = b
-                opt.state[b] = opt.state.pop(t)
+    rebind_leaves(opt, param_leaves(old), param_leaves(new))
 
 
 def reset_keyframe_slot(params: Dict, opt: Optional[AdamW], slot: int):

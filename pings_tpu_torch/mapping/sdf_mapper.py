@@ -1,9 +1,18 @@
-"""The optimizer pieces of SDF mapping that the joint GS+SDF step shares.
+"""SDF mapping: the continual-training step of the neural SDF, and the
+optimizer it shares with the joint GS+SDF step.
 
 Counterpart of ``pings_tpu/mapping/sdf_mapper.py``: ``row_masked_adamw``
-(:30-55, here the ``row_masked`` option of ``AdamW``), ``apply_sdf_params``
-(:87) and ``guard_nonfinite`` (:105-116). The SDF training step itself is
-not ported yet.
+(:30-55, here the ``row_masked`` option of ``AdamW``),
+``make_sdf_optimizer`` (:58-71), ``sdf_params`` (:74-84),
+``apply_sdf_params`` (:87), ``SdfStepMetrics``, ``guard_nonfinite``
+(:105-116), ``make_sdf_step`` (the step body, :119-219),
+``make_sdf_scan_step`` (:236-283) and ``init_sdf_train`` (:286-289). Per iteration: one neighbour search for
+the replay batch, BCE on the SDF, eikonal by central differences on the
+first ``eik_n`` points, colour L1, one backward pass, AdamW on the feature
+arrays (row-masked decay, ``lr``) and on the sdf and color decoders
+(``lr_mlp_base``). The trainables are the map's and the decoders' own
+tensors, updated in place; the SDF optimizer and the GS optimizer are two
+states over the same leaves, as in the JAX package.
 
 ``AdamW`` follows ``optax.adamw`` operation by operation, so that a step
 from the same parameters, moments and count gives the same parameters in
@@ -25,10 +34,17 @@ plain AdamW would decay every feature of the map every iteration.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from pings_tpu_torch.mapping import losses
+from pings_tpu_torch.mapping import pool as rp
+from pings_tpu_torch.models import field
+from pings_tpu_torch.models import neural_points as npm
+
+SDF_KEYS = ("geo_feat", "color_feat", "sdf", "color")
 
 
 class AdamW(torch.optim.Optimizer):
@@ -77,6 +93,62 @@ class AdamW(torch.optim.Optimizer):
                 p.add_(u, alpha=-lr)
 
 
+def sdf_param_leaves(params: Dict, key=None):
+    """The leaf tensors of the SDF trainables (of one entry, with
+    ``key``), in a fixed order: weights then biases for a decoder."""
+    for k in ([key] if key is not None else SDF_KEYS):
+        v = params[k]
+        if isinstance(v, torch.Tensor):
+            yield v
+        else:
+            yield from v["w"]
+            yield from (b for b in v["b"] if b is not None)
+
+
+def sdf_params(m, decoders, semantic_on: bool = False) -> Dict:
+    """The trainables of the SDF step: the map's feature arrays and the
+    sdf and color decoders, their own tensors, marked as leaves that
+    require a gradient."""
+    if semantic_on:
+        raise NotImplementedError("the semantic head is not yet ported")
+    p = {"geo_feat": m.geo_feat, "color_feat": m.color_feat,
+         "sdf": decoders["sdf"], "color": decoders["color"]}
+    for t in sdf_param_leaves(p):
+        t.requires_grad_(True)
+    return p
+
+
+def make_sdf_optimizer(cfg, params: Dict) -> AdamW:
+    """Two AdamW groups: the feature arrays with the row-masked decay at
+    ``lr``, the sdf and color decoders at ``lr_mlp_base``."""
+    groups = [dict(params=[t for k in ("geo_feat", "color_feat")
+                           for t in sdf_param_leaves(params, k)],
+                   lr=cfg.lr, row_masked=True, name="feat"),
+              dict(params=[t for k in ("sdf", "color")
+                           for t in sdf_param_leaves(params, k)],
+                   lr=cfg.lr_mlp_base, row_masked=False, name="mlp")]
+    opt = AdamW(groups, eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+    for t in sdf_param_leaves(params):
+        opt.init_state(t)
+    return opt
+
+
+def rebind_leaves(opt: AdamW, old: Iterable[torch.Tensor],
+                  new: Iterable[torch.Tensor]) -> None:
+    """Point the optimizer at each tensor of ``new`` whose counterpart in
+    ``old`` is another tensor (after a load replaced the map or the
+    decoders); the moments and step counts move with them."""
+    swap = {id(a): b for a, b in zip(old, new) if a is not b}
+    if not swap:
+        return
+    for group in opt.param_groups:
+        for i, t in enumerate(group["params"]):
+            if id(t) in swap:
+                b = swap[id(t)]
+                group["params"][i] = b
+                opt.state[b] = opt.state.pop(t)
+
+
 def apply_sdf_params(m, decoders, params) -> Tuple[object, Dict]:
     """The map and decoders with the SDF trainables of ``params``."""
     m = dataclasses.replace(m, geo_feat=params["geo_feat"],
@@ -102,3 +174,101 @@ def guard_nonfinite(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
     for p in leaves:
         p.grad = torch.where(finite, p.grad, torch.zeros_like(p.grad))
     return ~finite
+
+
+class SdfStepMetrics(NamedTuple):
+    total: torch.Tensor
+    bce: torch.Tensor
+    eikonal: torch.Tensor
+    color: torch.Tensor
+    sem: torch.Tensor
+    nonfinite: torch.Tensor | bool = False
+
+
+def make_sdf_step(cfg, optimizer: AdamW):
+    """step(params, batch, static_map, decoders, freeze) -> SdfStepMetrics,
+    one training iteration that updates ``params`` in place.
+    ``static_map`` supplies the map's non-trainable state; ``freeze``
+    zeroes the decoders' gradients."""
+    if cfg.semantic_on:
+        raise NotImplementedError("the semantic head is not yet ported")
+    if cfg.incidence_weight_on and cfg.incidence_source == "field":
+        raise NotImplementedError("field-source incidence weighting is "
+                                  "not yet ported")
+    k = cfg.query_nn_k
+    stencil_r = cfg.num_nei_cells
+    alpha = cfg.search_alpha
+    sigma_scale = cfg.logistic_gaussian_ratio * cfg.sigma_sigmoid_m
+    sigma = cfg.sigma_sigmoid_m
+    eik_n = max(cfg.bs // max(cfg.gradient_decimation, 1), 8)
+    grad_delta = cfg.voxel_size_m * cfg.num_grad_step_ratio
+    color_on = cfg.color_on
+
+    def step(params, batch, static_map, decoders, freeze) -> SdfStepMetrics:
+        pts, sdf_label, color_label, weight, valid = batch[:5]
+        # one neighbour search for the iteration, outside the tape: the
+        # selection depends only on the map's positions, hash and masks
+        kidx = npm.query_neighbor_idx(static_map, pts, k, stencil_r, alpha)
+        leaves = list(sdf_param_leaves(params))
+        for t in leaves:
+            t.grad = None
+        m, d = apply_sdf_params(static_map, decoders, params)
+        q = npm.eval_neighbors(m, pts, kidx, stencil_r, alpha)
+        sdf, _, qvalid = field.sdf_from_query(d, q, sigma_scale)
+        v = (valid & qvalid).to(torch.float32)
+        # eikonal on the first eik_n points of the (shuffled) batch, by
+        # central differences on the centre's neighbour table
+        g = field.sdf_grad_numerical_nn(m, d, pts[:eik_n], kidx[:eik_n],
+                                        sigma_scale, grad_delta, stencil_r,
+                                        alpha)
+        bce = losses.sdf_bce_loss(sdf, sdf_label, weight, sigma, v)
+        eik = losses.eikonal_loss(g, v[:eik_n])
+        if color_on:
+            cpred, cvalid = field.color_from_query(d, q)
+            cmask = v * cvalid * (torch.abs(sdf_label) < 2.0 * sigma)
+            closs = losses.color_l1_loss(cpred, color_label, cmask)
+        else:
+            closs = torch.zeros((), device=pts.device)
+        total = bce + cfg.weight_e * eik + cfg.weight_c * closs
+        total.backward()
+        if freeze:
+            for key in ("sdf", "color"):
+                for t in sdf_param_leaves(params, key):
+                    t.grad = None      # filled with zeros just below
+        nonfinite = guard_nonfinite(leaves)
+        optimizer.step()
+        z = lambda x: x.detach()
+        return SdfStepMetrics(z(total), z(bce), z(eik), z(closs),
+                              torch.zeros((), device=pts.device), nonfinite)
+
+    return step
+
+
+def make_sdf_scan_step(cfg, optimizer: AdamW):
+    """All of a frame's SDF iterations:
+    scan_step(params, pool, gen, static_map, decoders, freeze, iters)
+        -> the last iteration's SdfStepMetrics.
+    Each iteration draws its batch from the replay pool on the device; no
+    value is read on the host inside the loop. ``draws``: per iteration
+    the ``draws`` of ``pool_batch``, to use instead of the generator's."""
+    body = make_sdf_step(cfg, optimizer)
+    bs = cfg.bs
+    bs_new = min(cfg.bs_new_sample, cfg.bs // 2)
+
+    def scan_step(params, pool, gen, static_map, decoders, freeze,
+                  iters: int, draws=None) -> SdfStepMetrics:
+        met = None
+        for i in range(iters):
+            batch = rp.pool_batch(pool, gen, bs, bs_new,
+                                  draws=None if draws is None else draws[i])
+            met = body(params, batch, static_map, decoders, freeze)
+        return met
+
+    return scan_step
+
+
+def init_sdf_train(m, decoders, cfg):
+    """(optimizer, params) of the SDF step on the map's and the decoders'
+    own tensors."""
+    params = sdf_params(m, decoders, cfg.semantic_on)
+    return make_sdf_optimizer(cfg, params), params

@@ -5,9 +5,14 @@ Counterpart of ``pings_tpu/models/decoder.py``: each decoder is
 config turns biases off), evaluated as ``Linear -> ReLU -> ... -> Linear``
 with no output activation; heads are plain functions.
 
-``decoders_from_jax`` carries weights across from a JAX checkpoint: its
-keys are the flattened pytree paths ``dec['gauss_xyz']['w'][0]`` that
-``pings_tpu.slam.pipeline.SlamSystem.save`` writes.
+``init_mlp`` and ``init_decoders`` (:33-57, :100-132) build fresh
+decoders with the JAX package's shapes and distributions (He-normal
+weights, biases uniform in +-1/sqrt(fan_in)), drawn from a
+``torch.Generator``: ``jax.random`` draws other numbers, so a run that
+must start from the JAX package's decoders carries them across with
+``decoders_from_jax``, whose keys are the flattened pytree paths
+``dec['gauss_xyz']['w'][0]`` that ``SlamSystem.save`` writes in both
+packages.
 """
 
 from __future__ import annotations
@@ -23,6 +28,53 @@ from pings_tpu_torch import resolve_device
 Params = Dict[str, Any]
 
 _KEY = re.compile(r"^dec\['(\w+)'\]\['(w|b)'\]\[(\d+)\]$")
+
+
+def init_mlp(gen: torch.Generator, in_dim: int, hidden_dim: int,
+             hidden_level: int, out_dim: int, bias_on: bool = True,
+             device: str | torch.device = "cuda") -> Params:
+    """He-init MLP: ``hidden_level`` hidden layers and a linear head."""
+    dev = resolve_device(device)
+    dims = [in_dim] + [hidden_dim] * max(hidden_level, 1) + [out_dim]
+    ws, bs = [], []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        ws.append(torch.randn((d_in, d_out), generator=gen, device=dev)
+                  * float(np.sqrt(2.0 / d_in)))
+        # nonzero biases: with zero-initialized point features, zero
+        # biases would make every head output exactly 0
+        bound = float(1.0 / np.sqrt(np.float32(d_in)))
+        bs.append((torch.rand((d_out,), generator=gen, device=dev) * 2.0
+                   - 1.0) * bound if bias_on else None)
+    return {"w": ws, "b": bs}
+
+
+def init_decoders(gen: torch.Generator, cfg,
+                  device: str | torch.device = "cuda") -> Params:
+    """All eight decoders of the config: sdf, sem and color read a
+    neighbour's feature and its offset (+3); the Gaussian heads read the
+    point's geo and colour features, the alpha head one more input (the
+    view distance) and the colour head three (the view direction) when
+    the config concatenates them."""
+    K = cfg.spawn_n_gaussian
+    gf = cfg.feature_dim + 3
+    cf = cfg.color_feature_dim + 3
+    point_f = cfg.feature_dim + cfg.color_feature_dim
+    mk = lambda i, h, lv, o: init_mlp(gen, i, h, lv, o, cfg.mlp_bias_on,
+                                      device)
+    gh, gl = cfg.gaussian_mlp_hidden_dim, cfg.gaussian_mlp_level
+    return {
+        "sdf": mk(gf, cfg.geo_mlp_hidden_dim, cfg.geo_mlp_level, 1),
+        "sem": mk(gf, cfg.sem_mlp_hidden_dim, cfg.sem_mlp_level,
+                  cfg.sem_class_count),
+        "color": mk(cf, cfg.color_mlp_hidden_dim, cfg.color_mlp_level, 3),
+        "gauss_xyz": mk(point_f, gh, gl, 3 * K),
+        "gauss_rot": mk(point_f, gh, gl, 4 * K),
+        "gauss_scale": mk(point_f, gh, gl, 3 * K),
+        "gauss_alpha": mk(point_f + (1 if cfg.dist_concat_on else 0), gh,
+                          gl, K),
+        "gauss_color": mk(point_f + (3 if cfg.view_concat_on else 0), gh,
+                          gl, (1 if cfg.monochrome else 3) * K),
+    }
 
 
 def mlp_forward(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Counterpart of ``pings_tpu/models/field.py`` for the training path:
 ``sdf_from_query`` (:25), ``color_from_query`` (:33), ``sdf_at`` (:38),
-``check_invalid_gs`` (:106-136) and ``sdf_grad_numerical_nn`` (:139-156).
-Decoding is per neighbour (feature + relative offset); the K predictions
-are blended with the query's IDW weights. The dynamic-point filter, the
-semantic head and the analytical gradient are not ported yet.
+``check_invalid_gs`` (:106-136), ``sdf_grad_numerical_nn`` (:139-156) and
+``sdf_grad_analytical`` (:171-192). Decoding is per neighbour (feature +
+relative offset); the K predictions are blended with the query's IDW
+weights. The dynamic-point filter and the semantic head are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -91,3 +92,23 @@ def sdf_grad_numerical_nn(m, decoders, pts: torch.Tensor,
     s, _, _ = sdf_from_query(decoders, q, sigma_scale)
     s = s.reshape(n, 6)
     return (s[:, :3] - s[:, 3:]) / (2.0 * delta)
+
+
+def sdf_grad_analytical(m, decoders, pts: torch.Tensor, sigma_scale: float,
+                        k: int = 6, stencil_r: int = 1,
+                        search_alpha: float = 0.2,
+                        use_local_mask: bool = False):
+    """(sdf, grad, sdf_std, valid) at ``pts``, the gradient by autograd
+    with respect to the query points. The neighbour selection (piecewise
+    constant in the point) stays out of the differentiated part, as in the
+    JAX version; the points are independent, so one gradient of the summed
+    SDF gives each point's own (JAX's ``vmap(grad)``). Nothing is kept for
+    a later backward: the results are detached."""
+    kidx = npm.query_neighbor_idx(m, pts, k, stencil_r, search_alpha,
+                                  use_local_mask)
+    with torch.enable_grad():
+        p = pts.detach().requires_grad_(True)
+        q = npm.eval_neighbors(m, p, kidx, stencil_r, search_alpha)
+        s, std, v = sdf_from_query(decoders, q, sigma_scale)
+        (g,) = torch.autograd.grad(s.sum(), p)
+    return s.detach(), g, std.detach(), v

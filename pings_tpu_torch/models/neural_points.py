@@ -1,12 +1,19 @@
 """The neural point map as a dataclass of tensors, and its local window.
 
 Counterpart of ``pings_tpu/models/neural_points.py``: the
-``NeuralPointMap`` fields (:56-77), ``compute_local_mask`` (:205-265) and
-a reader for the ``map.*`` keys of a JAX checkpoint. Every per-point
-tensor has ``cap + 1`` rows; the last is the dump/padding row.
-The read-only query (``make_stencil`` :272, ``query_neighbor_idx``
-:295-335, ``eval_neighbors`` :338-374, ``query_feature`` :380-400) is here
-too; insertion and map maintenance are not ported yet.
+``NeuralPointMap`` fields (:56-77), ``init_map`` (:80-107),
+``insert_points`` (:114-197), ``compute_local_mask`` (:205-265) and a
+reader for the ``map.*`` keys of a JAX checkpoint. Every per-point tensor
+has ``cap + 1`` rows; the last is the dump/padding row. The query
+(``make_stencil`` :272, ``query_neighbor_idx`` :295-335,
+``eval_neighbors`` :338-374, ``query_feature`` :380-400) and
+``accumulate_certainty`` (:403-409) are here too; the loop-closure
+maintenance (``adjust_map``, ``recreate_hash``, ``prune_map``) is not
+ported yet.
+
+``insert_points`` and ``accumulate_certainty`` write into the map's own
+tensors: the feature arrays are the leaves the optimizers hold, and their
+Adam moments persist across an insert as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import numpy as np
 import torch
 
 from pings_tpu_torch import resolve_device
-from pings_tpu_torch.ops.transforms import voxel_hash
+from pings_tpu_torch.ops.transforms import (
+    sum_sq_fused, voxel_hash)
 
 _FIELDS = ("positions", "quats", "geo_feat", "color_feat", "rgb",
            "ts_create", "ts_update", "certainty", "valid_mask",
@@ -63,6 +71,140 @@ def map_from_jax(flat: Mapping[str, np.ndarray], resolution: float,
         **{f: torch.as_tensor(np.asarray(flat["map." + f]), device=device)
            for f in _FIELDS},
         resolution=float(resolution), buffer_size=int(buffer_size))
+
+
+def init_map(cfg, gen: torch.Generator | None = None,
+             device: str | torch.device = "cuda") -> NeuralPointMap:
+    """An empty map of ``cfg.max_points`` rows (plus the dump row) and a
+    hash table of ``cfg.buffer_size`` empty slots. With ``feature_std >
+    0`` the features start normal with that deviation, drawn from ``gen``
+    (``jax.random`` draws other numbers, so only the zero default equals
+    the JAX package's)."""
+    dev = resolve_device(device)
+    cap = cfg.max_points
+    F, Fc = cfg.feature_dim, cfg.color_feature_dim
+    std = cfg.feature_std
+
+    def feat(n):
+        if std > 0:
+            return torch.randn((cap + 1, n), generator=gen, device=dev) * std
+        return torch.zeros((cap + 1, n), device=dev)
+
+    zi = lambda: torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    zb = lambda: torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    quats = torch.zeros((cap + 1, 4), device=dev)
+    quats[:, 0] = 1.0
+    return NeuralPointMap(
+        positions=torch.zeros((cap + 1, 3), device=dev), quats=quats,
+        geo_feat=feat(F), color_feat=feat(Fc),
+        rgb=torch.zeros((cap + 1, 3), device=dev),
+        ts_create=zi(), ts_update=zi(),
+        certainty=torch.zeros(cap + 1, device=dev),
+        valid_mask=zb(), valid_gs_mask=zb(), local_mask=zb(),
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        hash_table=torch.full((cfg.buffer_size,), -1, dtype=torch.int32,
+                              device=dev),
+        resolution=float(cfg.voxel_size_m), buffer_size=int(cfg.buffer_size))
+
+
+@torch.no_grad()
+def insert_points(m: NeuralPointMap, pts: torch.Tensor, rgb: torch.Tensor,
+                  mask: torch.Tensor, quats: torch.Tensor, cur_ts: int,
+                  travel_dist: torch.Tensor, travel_dist_thre: float,
+                  dist_stale_ratio: float = 3.0) -> NeuralPointMap:
+    """Insert new observations (world frame, voxel-downsampled) into the
+    map, in place, and return it.
+
+    A candidate is admitted when its hash slot is empty, holds a point of
+    another voxel (farther than sqrt(dist_stale_ratio) voxels: a
+    collision) or a stale point (last updated more than
+    ``travel_dist_thre`` of travel ago). One winner per slot, the lowest
+    index; winners are appended at the tail, those past the capacity are
+    dropped, and winners claim their slots. Points that match an existing
+    one refresh its ``ts_update``. The result equals the JAX version's bit
+    for bit, the dump row included (which the JAX scatter fills from the
+    last candidate it drops there)."""
+    dev = pts.device
+    res = m.resolution
+    cap = m.capacity
+    H = m.buffer_size
+    M = pts.shape[0]
+    mask = mask & torch.all(torch.isfinite(pts), dim=-1)
+    coords = torch.floor(pts / res).to(torch.int32)
+    bucket = voxel_hash(coords, H)
+
+    existing = m.hash_table[bucket].long()
+    occupied = existing >= 0
+    ex_idx = torch.where(occupied, existing, torch.full_like(existing, cap))
+    d2 = sum_sq_fused(pts - m.positions[ex_idx])
+    same_voxel = occupied & (d2 <= dist_stale_ratio * res * res)
+    gap = torch.abs(travel_dist[cur_ts]
+                    - travel_dist[m.ts_update[ex_idx].long()])
+    stale = occupied & same_voxel & (gap > travel_dist_thre)
+    admit = mask & (~occupied | ~same_voxel | stale)
+    refresh = mask & same_voxel & ~stale
+
+    # one winner per bucket among the admitted candidates
+    arange = torch.arange(M, device=dev)
+    cand = torch.where(admit, arange, torch.full_like(arange, M))
+    bsel = torch.where(admit, bucket, torch.full_like(bucket, H))
+    win = torch.full((H + 1,), M, dtype=torch.int64, device=dev).scatter_reduce(
+        0, bsel, cand, reduce="amin", include_self=False)
+    is_winner = admit & (win[bsel] == arange)
+
+    # append the winners at the buffer tail
+    count = m.count.long()
+    slot = count + torch.cumsum(is_winner.long(), 0) - 1
+    placed = is_winner & (slot < cap)
+    dest = slot[placed]
+    # the square root in float64, rounded once: torch's vectorized float32
+    # square root on the CPU is not always correctly rounded
+    q = quats / torch.sqrt((sum_sq_fused(quats) + 1e-12).double()).float()[
+        :, None]
+    m.positions[dest] = pts[placed]
+    m.quats[dest] = q[placed]
+    m.rgb[dest] = rgb[placed]
+    m.ts_create[dest] = cur_ts
+    m.ts_update[dest] = cur_ts
+    m.certainty[dest] = 0.0
+    m.valid_mask[dest] = True
+    m.valid_gs_mask[dest] = True
+    m.geo_feat[dest] = 0.0
+    m.color_feat[dest] = 0.0
+    # the JAX scatter sends every other candidate to the dump row, where
+    # the last of them stays
+    last = torch.max(torch.where(placed, torch.full_like(arange, -1),
+                                 arange))
+    some = last >= 0
+    j = torch.clamp_min(last, 0)
+    for arr, val in ((m.positions, pts[j]), (m.quats, q[j]),
+                     (m.rgb, rgb[j])):
+        arr[cap] = torch.where(some, val, arr[cap])
+    for arr, val in ((m.ts_create, cur_ts), (m.ts_update, cur_ts),
+                     (m.certainty, 0.0), (m.valid_mask, True),
+                     (m.valid_gs_mask, True), (m.geo_feat, 0.0),
+                     (m.color_feat, 0.0)):
+        arr[cap] = torch.where(some, torch.full_like(arr[cap], val),
+                               arr[cap])
+
+    # claim the hash slots (one winner per slot: no write races)
+    m.hash_table[bucket[placed]] = dest.to(torch.int32)
+
+    # refresh the matched existing points
+    ref = torch.where(refresh, existing, torch.full_like(existing, cap))
+    m.ts_update[ref] = cur_ts
+    m.count.add_(torch.sum(placed).to(torch.int32))
+    return m
+
+
+def accumulate_certainty(m: NeuralPointMap, q: QueryResult) -> NeuralPointMap:
+    """Add the query's IDW weights into its neighbours' certainty, in
+    place (invalid neighbours point at the dump row, which stays 0)."""
+    with torch.no_grad():
+        m.certainty.index_add_(0, q.nn_idx.reshape(-1),
+                               q.weights.reshape(-1).detach())
+        m.certainty[-1] = 0.0
+    return m
 
 
 def _nearest_first(mask: torch.Tensor, bins: torch.Tensor, cap: int,

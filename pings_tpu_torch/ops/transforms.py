@@ -3,8 +3,9 @@ SE(3), the voxel hash and the camera projection of a scan.
 
 Counterpart of ``pings_tpu/ops/transforms.py`` (``quat_normalize`` ..
 ``quat_to_rotmat`` :32-125, ``so3_exp``/``skew``/``se3_exp`` :156-206,
-``voxel_hash`` :241, ``project_points_to_cam`` :321, ``splat_depth_map``
-:350).
+``voxel_hash`` :241, ``voxel_down_sample_mask`` :254-281,
+``project_points_to_cam`` :321, ``splat_depth_map`` :350,
+``colorize_points`` :371-383, ``crop_range_mask`` :390-399).
 
 Conventions: quaternions are (w, x, y, z), Hamilton, unit norm; transforms
 are 4x4 with points as row vectors, ``p' = T @ [p; 1]``.
@@ -117,6 +118,86 @@ def voxel_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:
     p = torch.tensor(HASH_PRIMES, dtype=torch.int32, device=c.device)
     h = (c[..., 0] * p[0]) ^ (c[..., 1] * p[1]) ^ (c[..., 2] * p[2])
     return torch.remainder(torch.abs(h), table_size).to(torch.int64)
+
+
+def _sum3_sq(d: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over a last axis of 3, added left to right as an
+    eager JAX reduction adds them (a torch reduction may pair the terms
+    otherwise)."""
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def sum_sq_fused(d: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis in the order a jitted JAX
+    function computes it on the CPU, where XLA contracts the reduction
+    into fused multiply-adds: fma(d2, d2, fma(d1, d1, d0 * d0)) and so on.
+    Each fused step is done in float64 (the product of two float32 values
+    is exact there) and rounded back to float32."""
+    f64 = d.double()
+    s = d[..., 0] * d[..., 0]
+    for i in range(1, d.shape[-1]):
+        s = (f64[..., i] * f64[..., i] + s.double()).float()
+    return s
+
+
+def _segment_min(values: torch.Tensor, seg: torch.Tensor,
+                 num_segments: int, fill) -> torch.Tensor:
+    """Per-segment minimum (``jax.ops.segment_min``); empty segments hold
+    ``fill``."""
+    out = torch.full((num_segments,), fill, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce(0, seg, values, reduce="amin",
+                              include_self=False)
+
+
+def voxel_down_sample_mask(points: torch.Tensor, mask: torch.Tensor,
+                           voxel_size: float,
+                           table_size: int = 1 << 20) -> torch.Tensor:
+    """One point per voxel, the closest to the voxel's centre (ties to the
+    lowest index); returns a keep-mask. Voxels are hashed into
+    ``table_size`` buckets, and two passes of a per-bucket minimum pick
+    the winner: the distance, then the index. Different voxels that share
+    a bucket keep one point between them, as in the JAX version; masked
+    points go to an overflow bucket. The same keep-mask as JAX's, bit for
+    bit: ``floor(p / voxel)`` and the distance are computed in its
+    order."""
+    n = points.shape[0]
+    coords = torch.floor(points / voxel_size).to(torch.int32)
+    center = (coords.to(points.dtype) + 0.5) * voxel_size
+    dist2 = _sum3_sq(points - center)
+    bucket = torch.where(mask, voxel_hash(coords, table_size),
+                         torch.full((n,), table_size, dtype=torch.int64,
+                                    device=points.device))
+    min_d = _segment_min(dist2, bucket, table_size + 1, float("inf"))
+    is_min = dist2 <= min_d[bucket]
+    idx = torch.arange(n, device=points.device)
+    idx_sel = torch.where(is_min & mask, idx, torch.full_like(idx, n))
+    winner = _segment_min(idx_sel, bucket, table_size + 1, n)
+    return (winner[bucket] == idx) & mask
+
+
+def crop_range_mask(points: torch.Tensor, min_range: float,
+                    max_range: float, min_z: float = float("-inf"),
+                    max_z: float = float("inf")) -> torch.Tensor:
+    """Range and height crop of a raw scan (the range as the jitted JAX
+    version computes it; the square root in float64, rounded once, since
+    torch's vectorized float32 one is not always correctly rounded on the
+    CPU)."""
+    r = torch.sqrt(sum_sq_fused(points).double()).float()
+    m = (r > min_range) & (r < max_range)
+    return m & (points[..., 2] > min_z) & (points[..., 2] < max_z)
+
+
+def colorize_points(uv: torch.Tensor, valid: torch.Tensor,
+                    image: torch.Tensor):
+    """Image colours (H, W, 3) in [0, 1] at projected pixels, nearest
+    pixel: (colors (N, 3), valid)."""
+    h, w = image.shape[:2]
+    px = torch.clamp(uv[..., 0].to(torch.int32), 0, w - 1).long()
+    py = torch.clamp(uv[..., 1].to(torch.int32), 0, h - 1).long()
+    colors = image[py, px]
+    return torch.where(valid[..., None], colors,
+                       torch.zeros_like(colors)), valid
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

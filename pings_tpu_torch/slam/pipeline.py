@@ -1,45 +1,60 @@
-"""The SLAM system's saved state, its render entry point and its
-Gaussian training.
+"""The SLAM system: the per-frame loop, its saved state, its render entry
+point and its training.
 
-Counterpart of ``pings_tpu/slam/pipeline.py``'s ``SlamSystem`` for the
-serving and the GS-training paths: the config, the neural point map, the
-decoders, the trajectory and the travel distances; ``load`` reads a JAX
-checkpoint (the ``.npz`` of ``SlamSystem.save``, :925-954); ``render_cam``
-(:901-922) renders the map's current local window from a camera;
-``_train_gs`` (:652-840) registers a frame's keyframes and runs the joint
-GS+SDF iterations on the current local window, with ``_ensure_gs``,
-``_sync_params_from_map`` (GS half), ``_apply_gs_params``,
-``_reset_cam_slot`` and ``_adaptive_offset``. ``process_frame`` (tracking,
-loop closure, map update, the SDF-only training) is not ported yet.
+Counterpart of ``pings_tpu/slam/pipeline.py``'s ``SlamSystem``:
+``process_frame`` (:154-301) runs one LiDAR + camera frame through
+preprocessing, odometry (``Tracker``), the map update (``_map_update``,
+:468-583: insert, local window, scan-normal incidence, ray sampling, the
+replay pool, certainty), the SDF-only training (``_train``, :603-632; the
+scan step on frame 0, or every frame without cameras or GS) and the joint
+GS+SDF iterations (``_train_gs``, :652-840). ``save`` and ``load``
+(:925-954) write and read the JAX package's checkpoint layout;
+``render_cam`` (:901-922) renders the map's current local window.
 
-State-synchronization model: the trainable leaves the GS optimizer holds
-are the map's feature tensors, the decoders' weights and the exposure and
-pose-delta pools themselves, updated in place; ``_sync_params_from_map``
-re-binds the optimizer when one of them has been replaced by another
-tensor (after ``load``), and the Adam moments persist across frames.
+Not ported yet, and refused at construction: loop closure (``pgo_on``),
+the dynamic filter, semantics, mono depth, the merged cloud, the TSDF mesh
+and deskewing.
+
+State-synchronization model: the trainable leaves the SDF and GS
+optimizers hold are the map's feature tensors, the decoders' weights and
+the exposure and pose-delta pools themselves, updated in place; the two
+optimizers keep separate moments over the same leaves, as in the JAX
+package. ``_sync_params_from_map`` re-binds them when a leaf has been
+replaced by another tensor (after ``load``); the Adam moments persist
+across frames and across map inserts.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from pings_tpu_torch import resolve_device
-from pings_tpu_torch.data.frame import PreprocessedFrame, project_scan_to_cam
-from pings_tpu_torch.data.synthetic import se3_inv
-from pings_tpu_torch.mapping import gs_mapper, pool as rp
+from pings_tpu_torch.data.frame import (
+    PreprocessedFrame, colorize_scan, preprocess_frame, project_scan_to_cam)
+from pings_tpu_torch.mapping import gs_mapper, pool as rp, sdf_mapper
 from pings_tpu_torch.mapping.campool import CamPool
+from pings_tpu_torch.mapping.sampler import sample_rays_cfg
 from pings_tpu_torch.models import field
-from pings_tpu_torch.models.decoder import decoders_from_jax
+from pings_tpu_torch.models import neural_points as npm
+from pings_tpu_torch.models.decoder import decoders_from_jax, init_decoders
 from pings_tpu_torch.models.neural_points import NeuralPointMap, map_from_jax
 from pings_tpu_torch.models.renderer import CamView, render
 from pings_tpu_torch.models.spawn import (
     LocalPointData, SpawnedGaussians, gather_local_data, local_indices,
     spawn_gaussians, spawn_kwargs_from_cfg)
+from pings_tpu_torch.odometry.tracker import Tracker
+from pings_tpu_torch.ops.scan_normals import scan_incidence_cos
+from pings_tpu_torch.utils import pose as hp
 
 MAX_FRAMES = 100000
+# options whose code paths are not ported yet
+UNPORTED = ("pgo_on", "dynamic_filter_on", "semantic_on", "mono_depth_on",
+            "save_merged_pc", "save_tsdf_mesh", "deskew")
 
 
 class FrameReport:
@@ -54,18 +69,25 @@ class FrameReport:
 
 
 class SlamSystem:
-    def __init__(self, cfg, device: str | torch.device = "cuda"):
+    def __init__(self, cfg, device: str | torch.device = "cuda",
+                 fresh: bool = True):
+        """``fresh``: build an empty map and random decoders from the
+        configuration's seed; a system that is about to ``load`` a
+        checkpoint passes False and has neither until then."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        for opt in UNPORTED:
+            if getattr(cfg, opt):
+                raise NotImplementedError(f"{opt} is not yet ported")
         self.m: Optional[NeuralPointMap] = None
         self.decoders: Optional[dict] = None
-        self.poses: List[np.ndarray] = []     # post-PGO odom poses (f64)
-        self.travel: List[float] = []
-        # per-frame travel distance on the device (all zero after a load,
-        # as in the JAX package: offline queries use an infinite window)
-        self.travel_dev = torch.zeros(MAX_FRAMES, device=self.device)
-        self._local_size = cfg.max_local_points
+        if fresh:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(cfg.seed)
+            self.m = npm.init_map(cfg, gen, self.device)
+            self.decoders = init_decoders(gen, cfg, self.device)
         self.pool = rp.init_pool(cfg.pool_capacity, self.device)
+        self.tracker = Tracker(cfg, self.device) if cfg.track_on else None
         self.campool = CamPool(cfg) if cfg.gs_on else None
         if self.campool:
             self.exposure, self.cam_delta = self.campool.init_param_pools(
@@ -73,16 +95,64 @@ class SlamSystem:
         self.rng = np.random.default_rng(cfg.seed)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed + 1)
-        self.stop_status = False      # set by the odometry's stop detection
+        # the random numbers of the map update and the SDF-only step come
+        # from ``_gen`` unless ``draws`` supplies them: an object with
+        # ``map_update(n_points, pool) -> (sample_rays draws, pool_insert
+        # slots)`` and ``sdf_batches(iters, pool) -> [pool_batch draws]``
+        # (a parity test hands in the JAX package's numbers)
+        self.draws = None
+
+        self.poses: List[np.ndarray] = []     # post-PGO odom poses (f64)
+        self.odom_only_poses: List[np.ndarray] = []
+        self.travel: List[float] = []
+        # per-frame travel distance on the device (all zero after a load:
+        # offline queries use an infinite window)
+        self.travel_dev = torch.zeros(MAX_FRAMES, device=self.device)
+        self.T_rel_last = np.eye(4)
+        self.frame_id = -1
+        self.lose_track_count = 0
+        self.aborted = False
+        self.abort_reason = ""
+        self._odom_noise_rng = np.random.default_rng(cfg.odom_noise_seed)
+        # robot-stop detection
+        self.stop_count = 0
+        self.stop_status = False
         self.new_obs_ratio = 1.0      # new-observation ratio -> iterations
         self._sur_mask: Optional[torch.Tensor] = None  # surrounding annulus
+        self._local_size = cfg.max_local_points
+        self._sdf = None              # [optimizer, params, scan step]
         self._gs = None               # [optimizer, params, {shape: step}]
         # per-iteration (slot, level, used cached bins, metrics) of the
         # last _train_gs call
         self.gs_iter_log: List[tuple] = []
 
+    def _sync(self):
+        """Wait for the card, so that a stage's host time covers its
+        device work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def save(self, path: str) -> None:
+        """Checkpoint the map, the decoders, the poses and the travel
+        distances as a ``.npz`` in the JAX package's key layout
+        (``map.<field>``, ``dec['<name>']['w'|'b'][i]``), which the
+        ``load`` of both packages reads."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        flat = {"map." + f: getattr(self.m, f).detach().cpu().numpy()
+                for f in npm._FIELDS}
+        for name, d in self.decoders.items():
+            for kind in ("w", "b"):
+                for i, x in enumerate(d[kind]):
+                    if x is not None:
+                        flat[f"dec['{name}']['{kind}'][{i}]"] = \
+                            x.detach().cpu().numpy()
+        np.savez_compressed(path, poses=np.stack(self.poses)
+                            if self.poses else np.zeros((0, 4, 4)),
+                            travel=np.asarray(self.travel), **flat)
+
     def load(self, path: str) -> None:
-        """Read a checkpoint written by ``pings_tpu``'s ``SlamSystem.save``."""
+        """Read a checkpoint written by ``SlamSystem.save`` of either
+        package."""
         with np.load(path, allow_pickle=False) as data:
             flat = {k: data[k] for k in data.files}
         self.poses = [p for p in flat["poses"]]
@@ -90,6 +160,214 @@ class SlamSystem:
         self.m = map_from_jax(flat, self.cfg.voxel_size_m,
                               self.cfg.buffer_size, self.device)
         self.decoders = decoders_from_jax(flat, self.device)
+
+    # -- the frame loop -----------------------------------------------------
+    def process_frame(self, frame: dict) -> FrameReport:
+        cfg = self.cfg
+        rep = FrameReport()
+        self.frame_id += 1
+        rep.frame_id = fid = self.frame_id
+        t0 = time.time()
+
+        pre = preprocess_frame(frame, cfg, self.T_rel_last, cfg.deskew,
+                               self.device)
+        rep.timings["preprocess"] = time.time() - t0
+
+        # ---------- odometry ----------
+        t1 = time.time()
+        if fid == 0:
+            T = np.eye(4)
+            if pre.gt_pose is not None:
+                T = pre.gt_pose   # the world frame is anchored at the start
+            self.poses.append(np.asarray(T, np.float64))
+            self.odom_only_poses.append(self.poses[0].copy())
+            self.travel.append(0.0)
+        else:
+            T_guess = self.poses[-1] @ self.T_rel_last
+            if cfg.track_on:
+                res = self.tracker.track(
+                    self.m, self.decoders, pre.source_points,
+                    pre.source_mask, T_guess)
+                rep.tracking_valid = res.valid and not res.degenerate
+                T = res.T_w_l if rep.tracking_valid else T_guess
+                rep.metrics["track_res_m"] = res.mean_res
+                rep.metrics["track_iter"] = res.iterations
+                rep.metrics["track_valid_ratio"] = res.valid_ratio
+                rep.metrics["track_degen"] = float(res.degenerate)
+                # device-to-host reads: one per iteration, one for the result
+                rep.metrics["track_syncs"] = res.iterations + 1
+            else:
+                T = pre.gt_pose if pre.gt_pose is not None else T_guess
+                rep.tracking_valid = True
+            # single-frame-jump abort: a translation beyond 40 x
+            # surface_sample_range_m in one frame is never physical; keep
+            # the motion-model guess and stop the run
+            if cfg.track_on:
+                jump = float(np.linalg.norm(
+                    (hp.se3_inv(self.poses[-1]) @ T)[:3, 3]))
+                if jump > 40.0 * cfg.surface_sample_range_m:
+                    rep.tracking_valid = False
+                    T = T_guess
+                    self.aborted = True
+                    self.abort_reason = (
+                        f"too large translation in one frame "
+                        f"({jump:.2f} m > "
+                        f"{40.0 * cfg.surface_sample_range_m:.2f} m)")
+            if not rep.tracking_valid:
+                self.lose_track_count += 1
+                if self.lose_track_count > cfg.lose_track_abort_n:
+                    self.aborted = True
+                    if not self.abort_reason:
+                        self.abort_reason = (
+                            "lose track for more than "
+                            f"{cfg.lose_track_abort_n} consecutive frames")
+            else:
+                self.lose_track_count = 0
+            if cfg.odom_noise_std_per_m > 0 and rep.tracking_valid:
+                # validation-only random-walk odometry corruption, scaled
+                # with the edge's motion
+                d = float(np.linalg.norm(
+                    (hp.se3_inv(self.poses[-1]) @ T)[:3, 3]))
+                rng = self._odom_noise_rng
+                xi = np.concatenate([
+                    rng.normal(0, cfg.odom_noise_std_per_m * d, 3),
+                    rng.normal(0, np.radians(
+                        cfg.odom_noise_rot_deg_per_m) * d, 3)])
+                T = np.asarray(T, np.float64) @ hp.se3_exp(xi)
+            self.T_rel_last = hp.se3_inv(self.poses[-1]) @ T
+            self.poses.append(np.asarray(T, np.float64))
+            self.odom_only_poses.append(
+                self.odom_only_poses[-1] @ self.T_rel_last)
+            step_d = float(np.linalg.norm(self.T_rel_last[:3, 3]))
+            self.travel.append(self.travel[-1] + step_d)
+            # robot-stop detection: consecutive near-identity steps
+            # throttle mapping (rotation tolerance 1e-3, translation 0.1
+            # voxel)
+            rot_close = float(np.abs(self.T_rel_last[:3, :3]
+                                     - np.eye(3)).max()) < 1e-3
+            tran_close = step_d < 0.1 * cfg.voxel_size_m
+            self.stop_count = (self.stop_count + 1
+                               if (rot_close and tran_close) else 0)
+            self.stop_status = self.stop_count > cfg.stop_frame_thre
+        self.travel_dev[fid] = self.travel[-1]
+        rep.pose = self.poses[-1]
+        self._sync()
+        rep.timings["tracking"] = time.time() - t1
+        rep.timings["loop"] = 0.0     # loop closure is not ported yet
+
+        # ---------- map update + SDF supervision ----------
+        # a stopped robot adds no new observations (except at start-up)
+        t3 = time.time()
+        if (rep.tracking_valid and not self.aborted
+                and (not self.stop_status or fid < 5)):
+            self._map_update(pre, fid, rep)
+        self._sync()
+        rep.timings["map_update"] = time.time() - t3
+
+        # ---------- training ----------
+        t4 = time.time()
+        if rep.tracking_valid and not self.aborted:
+            self._train(pre, fid, rep)
+        rep.n_points = int(self.m.count)
+        rep.timings["training"] = time.time() - t4
+        return rep
+
+    # -- mapping internals ----------------------------------------------------
+    @torch.no_grad()
+    def _map_update(self, pre: PreprocessedFrame, fid: int,
+                    rep: FrameReport):
+        """On the device: colour the scan from the cameras, insert, the
+        local window and its surrounding annulus, scan-normal incidence,
+        ray sampling, the replay pool, the endpoint query, the certainty
+        update and the new-observation counts."""
+        cfg = self.cfg
+        dev = self.device
+        T = self.poses[-1]
+        pts_w = (pre.points_l @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        pts = torch.as_tensor(pts_w, device=dev)
+        msk = torch.as_tensor(pre.mask, device=dev)
+        cols = torch.as_tensor(pre.colors, dtype=torch.float32, device=dev)
+        valid_color = torch.zeros(len(pts_w), dtype=torch.bool, device=dev)
+        for cd in pre.cams.values():
+            # camera shutter offset: the body pose at the camera's time
+            T_cam_t = T
+            frac = float(cd.get("ts_frac", 0.0) or 0.0)
+            if frac != 0.0 and len(self.poses) >= 2:
+                T_cam_t = hp.slerp_pose(self.poses[-2], T, 1.0 + frac)
+            T_c_w = np.asarray(cd["T_c_l"], np.float64) @ hp.se3_inv(T_cam_t)
+            c, v = colorize_scan(pts, msk, T_c_w, cd["K"], cd["img"], dev)
+            new = v & ~valid_color
+            cols = torch.where(new[:, None], c, cols)
+            valid_color |= new
+
+        thre = cfg.local_map_travel_dist_ratio * cfg.local_map_radius
+        origin = torch.as_tensor(T[:3, 3].astype(np.float32), device=dev)
+        quats = torch.zeros((len(pts_w), 4), device=dev)
+        quats[:, 0] = 1.0
+        m = npm.insert_points(self.m, pts, cols, msk, quats, fid,
+                              self.travel_dev, thre)
+        local, sur = npm.compute_local_mask(
+            m, origin, fid, self.travel_dev, cfg.local_map_radius, thre,
+            cfg.use_mid_ts, max_local=cfg.max_local_points,
+            max_surround=cfg.max_surrounding_points)
+        m.local_mask = local
+        incid = None
+        if cfg.incidence_weight_on and cfg.incidence_source == "scan":
+            incid, _ = scan_incidence_cos(
+                pts, msk, origin, voxel=cfg.incidence_normal_voxel_m)
+        ray_draws = slot_draws = None
+        if self.draws is not None:
+            ray_draws, slot_draws = self.draws.map_update(len(pts_w),
+                                                          self.pool)
+        smp = sample_rays_cfg(self._gen, pts, cols, msk, origin, cfg,
+                              incid_cos=incid, draws=ray_draws)
+        self.pool = rp.pool_insert(self.pool, smp, fid, self._gen,
+                                   rnd=slot_draws)
+        q = npm.query_feature(m, pts, k=cfg.query_nn_k,
+                              stencil_r=cfg.num_nei_cells,
+                              search_alpha=cfg.search_alpha)
+        cert_blend = torch.sum(m.certainty[q.nn_idx] * q.weights, dim=-1)
+        n_valid = torch.sum(msk)
+        n_new = torch.sum(msk & (cert_blend < cfg.new_certainty_thre))
+        self.m = npm.accumulate_certainty(m, q)
+        self._sur_mask = sur
+        if fid > 0:
+            self.new_obs_ratio = float(n_new) / max(float(n_valid), 1.0)
+
+    def _ensure_sdf(self):
+        if self._sdf is None:
+            opt, params = sdf_mapper.init_sdf_train(self.m, self.decoders,
+                                                    self.cfg)
+            self._sdf = [opt, params,
+                         sdf_mapper.make_sdf_scan_step(self.cfg, opt)]
+
+    def _apply_sdf_params(self):
+        self.m, self.decoders = sdf_mapper.apply_sdf_params(
+            self.m, self.decoders, self._sdf[1])
+
+    def _train(self, pre: PreprocessedFrame, fid: int, rep: FrameReport):
+        cfg = self.cfg
+        self._ensure_sdf()
+        self._sync_params_from_map()
+        freeze = fid >= cfg.freeze_after_frame
+        if fid == 0:
+            iters = cfg.mapping_iters * cfg.init_iter_ratio
+        else:
+            iters = cfg.mapping_iters + self._adaptive_offset(fid)
+            if self.stop_status:
+                iters = max(1, iters - 10)    # a stopped robot trains barely
+        rep.metrics["new_obs_ratio"] = self.new_obs_ratio
+        rep.metrics["sdf_iters"] = max(iters, 0)
+        opt, params, step = self._sdf
+        if ((not cfg.gs_on) or fid == 0 or not pre.cams) and iters > 0:
+            met = step(params, self.pool, self._gen, self.m, self.decoders,
+                       freeze, int(iters),
+                       draws=None if self.draws is None
+                       else self.draws.sdf_batches(int(iters), self.pool))
+            self._apply_sdf_params()
+            rep.metrics["sdf_bce"] = float(met.bce)
+        if cfg.gs_on and pre.cams:
+            self._train_gs(pre, fid, rep, freeze)
 
     @torch.no_grad()
     def render_cam(self, cam: CamView):
@@ -125,6 +403,13 @@ class SlamSystem:
     def _sync_params_from_map(self):
         """Re-extract the trainable leaves after the map, the decoders or
         the pools were replaced."""
+        if self._sdf is not None:
+            new = sdf_mapper.sdf_params(self.m, self.decoders,
+                                        self.cfg.semantic_on)
+            sdf_mapper.rebind_leaves(self._sdf[0],
+                                     sdf_mapper.sdf_param_leaves(self._sdf[1]),
+                                     sdf_mapper.sdf_param_leaves(new))
+            self._sdf[1] = new
         if self._gs is not None:
             new = gs_mapper.gs_params(self.m, self.decoders, self.exposure,
                                       self.cam_delta)
@@ -181,21 +466,26 @@ class SlamSystem:
         held_out = (cfg.gs_eval_hold_out_every > 0
                     and fid % cfg.gs_eval_hold_out_every == 0)
         if fid % max(cfg.gs_keyframe_interval, 1) == 0 and not held_out:
+            pts_w = None
             for cd in pre.cams.values():
-                img = np.asarray(cd["img"], np.float32) / 255.0
-                h, w = img.shape[:2]
-                T_c_w = np.asarray(cd["T_c_l"], np.float64) @ se3_inv(T)
-                depth = cd.get("depth")
-                if depth is None:
-                    pts_w = (pre.points_l @ T[:3, :3].T + T[:3, 3]).astype(
-                        np.float32)
+                rgb = torch.as_tensor(cd["img"], device=dev).to(
+                    torch.float32) / 255.0
+                h, w = rgb.shape[:2]
+                T_c_w = np.asarray(cd["T_c_l"], np.float64) @ hp.se3_inv(T)
+                if cd.get("depth") is not None:
+                    depth = f32(cd["depth"])
+                else:
+                    if pts_w is None:
+                        pts_w = torch.as_tensor(
+                            (pre.points_l @ T[:3, :3].T + T[:3, 3]).astype(
+                                np.float32), device=dev)
                     depth = project_scan_to_cam(pts_w, pre.mask, T_c_w,
-                                                cd["K"], w, h)
+                                                cd["K"], w, h, dev)
                 sky = cd.get("sky")
                 cam = CamView(
-                    K=f32(cd["K"]), T_c_w=f32(T_c_w), rgb=f32(img),
-                    depth=f32(depth),
-                    sky=f32(sky if sky is not None else np.zeros((h, w))),
+                    K=f32(cd["K"]), T_c_w=f32(T_c_w), rgb=rgb, depth=depth,
+                    sky=f32(sky) if sky is not None
+                    else torch.zeros((h, w), device=dev),
                     frame_id=fid)
                 slot = self.campool.add_keyframe(
                     cam, T[:3, 3], fid,

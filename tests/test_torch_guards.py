@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_pings_tpu():
     for new in ("ops.ssim", "mapping.losses", "mapping.gs_mapper",
                 "mapping.sdf_mapper", "mapping.sampler", "mapping.pool",
                 "mapping.campool", "models.field", "data.frame",
-                "data.synthetic"):
+                "data.synthetic", "odometry.tracker", "ops.scan_normals",
+                "utils.pose", "eval.traj", "slam.pipeline"):
         assert "pings_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             "before = set(sys.modules)\n"
@@ -121,6 +122,61 @@ def test_training_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         refine_view_pose(Config(), None, None, None, 8, 8)
     assert init_pool(16, device="cpu").capacity == 16
+
+
+def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
+    """A fresh ``SlamSystem`` and its parts default to cuda and raise
+    without a card; every option whose code path is not ported raises
+    ``NotImplementedError``, at construction or where the step is made.
+    One test function: the suite's processes take files in the order of
+    their test counts, and this file keeps its place in that order."""
+    _no_card()
+    from pings_tpu_torch.config import Config
+    from pings_tpu_torch.data import frame as fr
+    from pings_tpu_torch.mapping import sdf_mapper
+    from pings_tpu_torch.models.decoder import init_decoders
+    from pings_tpu_torch.models.neural_points import init_map
+    from pings_tpu_torch.odometry.tracker import Tracker
+    from pings_tpu_torch.slam.pipeline import UNPORTED, SlamSystem
+
+    small = dict(max_points=64, buffer_size=64, pool_capacity=64)
+    cfg = Config.load(overrides=dict(small, track_on=True, gs_on=True))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlamSystem(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Tracker(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_map(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_decoders(torch.Generator(), cfg)
+    scan = {"points": np.ones((8, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        fr.preprocess_frame(scan, cfg, np.eye(4), False)
+    img = np.zeros((4, 4, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fr.colorize_scan(scan["points"], np.ones(8, bool), np.eye(4),
+                         np.eye(3), img)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fr.project_scan_to_cam(scan["points"], np.ones(8, bool), np.eye(4),
+                               np.eye(3), 4, 4)
+    assert len(fr.preprocess_frame(scan, cfg, np.eye(4), False,
+                                   "cpu").mask) == 4096
+    s = SlamSystem(cfg, device="cpu")
+    assert s.tracker.device.type == "cpu" and s.m.capacity == 64
+
+    assert set(UNPORTED) == {"pgo_on", "dynamic_filter_on", "semantic_on",
+                             "mono_depth_on", "save_merged_pc",
+                             "save_tsdf_mesh", "deskew"}
+    for opt in UNPORTED:
+        with pytest.raises(NotImplementedError, match=opt):
+            SlamSystem(Config.load(overrides=dict(small, **{opt: True})),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="photometric"):
+        Tracker(Config.load(overrides={"photometric_loss_on": True}), "cpu")
+    for over in ({"semantic_on": True},
+                 {"incidence_weight_on": True, "incidence_source": "field"}):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            sdf_mapper.make_sdf_scan_step(Config.load(overrides=over), None)
 
 
 def test_render_raises_without_a_card():
