@@ -60,28 +60,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
            than 0.5 dB under the first 5.
    SLAM:  ``SlamSystem(cfg).process_frame`` on cuda from frame 0, the
            system building its own map, decoders, pool and tracker:
-           (a) kitti at full width, ``configs/kitti_synth.yaml`` with
-           ``pgo_on`` off, frames 0-5 of the circuit (the scans of
-           ``kitti_scan``, rng = frame id, and the camera images of
-           ``kitti_frame``, without depth or sky as the kitti loader gives
-           them): every frame from 1 on tracks valid, the ATE against the
-           ground truth (anchored at its start, no alignment) is under
-           0.28 m and 1.0 deg (just above the spread over the decoders'
-           seed: the JAX package reads 0.10-0.25 m on these frames, the
-           port 0.14-0.27 m), every loss is finite and the surfel
-           forward, backward and contribution kernels were launched; per
-           frame the host-clock ms (a synchronize on both sides), the
-           stage ms, the tracker's iterations, valid ratio, residual and
-           device-to-host reads, the map's count, the new-observation
-           ratio, the SDF and GS iterations, the online PSNR and the
-           launches; the median ms per mapped frame over frames 1-5 and the
-           peak device memory. (b) LiDAR only, ``small_cfg(gs_on=False)``
-           on the ``"12:line"`` synthetic sequence: tracking valid from
-           frame 2, ATE under 0.35 m and 4 deg, more than 1,000 points.
-           (c) GS-SLAM, ``small_cfg(gs_on=True, gs_iters=8)`` on
-           ``"6:line"``: at least 4 online PSNRs, all finite, the last
-           over 12 dB. The bars of (b) and (c) are the JAX package's own
-           (tests/test_pipeline.py:34-51, 83-96).
+           (a) ``cli kitti``: the command line on kitti at full width with
+           the pose graph on, as ``configs/kitti_synth.yaml`` says:
+           ``scripts/torch_make_kitti_data.py`` writes frames 0-11 of the
+           circuit in KITTI format, the ``kitti`` loader's frames must equal
+           ``kitti_sequence``'s, and ``pings_tpu_torch.cli.main`` runs them
+           (``--range 0 12 1``): the run directory's files are written,
+           every frame from 1 on tracks valid, the ATE over frames 0-5
+           against the ground truth (anchored at its start, no alignment)
+           is under 0.28 m and 1.0 deg (just above the spread over the
+           decoders' seed: the JAX package reads 0.10-0.25 m on these
+           frames, the port 0.14-0.27 m), the pose graph has 12 nodes and
+           11 odometry factors, scan-context nodes are at frames 0, 5 and
+           10, every frame has a loop-stage time and the surfel forward,
+           backward and contribution kernels were launched; per frame the
+           host-clock ms (a synchronize on both sides), the stage ms, the
+           tracker's iterations, residual and device-to-host reads, the
+           map's count, the GS iterations, the online PSNR and the
+           launches; the median ms per mapped frame and of the loop stage,
+           and the peak device memory. On the final map (2^20 rows, 2^22
+           buckets) ``recreate_hash`` (both conflict rules) on the card
+           equals the CPU's table exactly and ``adjust_map`` agrees within
+           1e-6 m, each timed by CUDA events. (b) ``slam loop``: loop
+           closure through ``process_frame`` on the ``"60:circle"``
+           synthetic world run 10 frames past its lap (``loop_cfg``: the
+           pose graph on, local candidates after 30 m, no cooldown, an
+           informativeness gate of 5 cm, scan-context matches up to a
+           cosine distance of 0.35), the SDF alone until the first
+           applied loop and GS (15 iterations a frame) after it: the loop
+           events are printed; at least one applied loop and one
+           rejection, no lost frame, the travel within 10% of the ground
+           truth's, the map operations as in (a) after the loop, and the
+           surfel kernels launched on the frames after it; the loop stage's
+           and the PGO solve's ms, and the ATE of the SLAM poses beside the
+           odometry's (no bar on it). (c) LiDAR only,
+           ``small_cfg(gs_on=False)`` on the ``"12:line"`` synthetic
+           sequence: tracking valid from frame 2, ATE under 0.35 m and 4
+           deg, more than 1,000 points. (d) GS-SLAM, ``small_cfg(gs_on=True,
+           gs_iters=8)`` on ``"6:line"``: at least 4 online PSNRs, all
+           finite, the last over 12 dB. The bars of (c) and (d) are the JAX
+           package's own (tests/test_pipeline.py:34-51, 83-96).
 5. times   per-view ms and per-stage ms of ``render()``; ms per GS
            iteration (host clock with a synchronize, fresh and cached
            table) and per-stage ms (CUDA events recorded by the step's
@@ -95,8 +113,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
            only to those with alpha > 0, plus one rectangle test per warp
            and slot.
 
-Prints the kernels' JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+Prints the versions of python, torch, numpy and scipy first, the kernels'
+JSON line, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Exits non-zero without a CUDA device.
 """
 
 import json
@@ -1029,57 +1048,387 @@ def slam_run(torch, rb, name, system, frames, verbose=True):
     return reps, ms, launches
 
 
-def slam_kitti(torch, rb):
-    """kitti at full width, frames 0-5, through process_frame."""
-    from pings_tpu_torch.config import Config
+def map_copy(m, device):
+    """A copy of the map ``m`` on ``device``."""
+    import dataclasses
+
+    from pings_tpu_torch.models import neural_points as npm
+
+    return dataclasses.replace(m, **{
+        f: getattr(m, f).detach().to(device, copy=True) for f in npm._FIELDS})
+
+
+def event_ms(torch, setup, fn, reps=5):
+    """Median ms of ``fn(setup())`` between two CUDA events over ``reps``
+    calls, each on a fresh input made by ``setup`` before the first
+    event."""
+    ms = []
+    for _ in range(reps):
+        arg = setup()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn(arg)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return statistics.median(ms)
+
+
+def check_map_ops(torch, name, m, deltas, ref_ts):
+    """The loop-closure map operations on the card against the CPU, on
+    copies of ``m``: ``recreate_hash`` with both conflict rules (the
+    recency rule and the one around ``ref_ts``) gives equal tables;
+    ``adjust_map`` by ``deltas`` (F, 4, 4) positions within 1e-6 m and
+    quaternions within 1e-6. Returns the card's ms of each (CUDA events,
+    median of 5 calls on fresh copies)."""
+    from pings_tpu_torch.models import neural_points as npm
+
+    cpu = map_copy(m, "cpu")
+    filled = []
+    for ref in (None, ref_ts):
+        want = npm.recreate_hash(map_copy(cpu, "cpu"), ref).hash_table
+        filled.append(int((want >= 0).sum()))
+        got = npm.recreate_hash(map_copy(m, "cuda"), ref).hash_table.cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name}: recreate_hash(ref_ts={ref}) differs from the CPU "
+                f"at {int((got != want).sum())} of {got.numel()} buckets")
+    d_cpu = deltas.cpu()
+    want = npm.adjust_map(map_copy(cpu, "cpu"), d_cpu)
+    got = npm.adjust_map(map_copy(m, "cuda"), deltas)
+    n = int(m.count)
+    e_pos = float((got.positions[:n].cpu() - want.positions[:n]).abs().max())
+    e_q = float((got.quats[:n].cpu() - want.quats[:n]).abs().max())
+    if not (e_pos <= 1e-6 and e_q <= 1e-6):
+        raise AssertionError(f"{name}: adjust_map card vs CPU positions "
+                             f"{e_pos:.3e} m, quaternions {e_q:.3e}")
+
+    fresh = lambda: map_copy(m, "cuda")
+    t_hash = event_ms(torch, fresh, npm.recreate_hash)
+    t_adj = event_ms(torch, fresh, lambda x: npm.adjust_map(x, deltas))
+    log(f"{name}: map ops card vs CPU on {n} points ({m.capacity} rows, "
+        f"{m.buffer_size} buckets): recreate_hash equal under both rules "
+        f"({filled} buckets filled), adjust_map max diff positions {e_pos:.3e} m, "
+        f"quaternions {e_q:.3e}; card ms (CUDA events, median of 5): "
+        f"recreate_hash {t_hash:.4f}, adjust_map {t_adj:.4f}")
+    return t_hash, t_adj
+
+
+def pool_map(fn, *args):
+    """``map(fn, *args)`` over processes (spawned: the parent holds a CUDA
+    context), one per core up to 8; all are joined before it returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    n = min(8, os.cpu_count() or 1)
+    with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context(
+            "spawn")) as ex:
+        return list(ex.map(fn, *args))
+
+
+def kitti_ref_frame(i, n):
+    """``kitti_sequence(n)[i]``."""
+    from pings_tpu_torch.data import synthetic as syn
+
+    return syn.kitti_sequence_frame(i, syn.circuit_world(),
+                                    syn.kitti_poses(n))
+
+
+def loop_cfg(**kw):
+    """The small configuration of the JAX package's pipeline tests with the
+    pose graph on, for the ``"60:circle"`` world: local loop candidates
+    after 1.2 x max_range = 30 m of travel (under the lap of 37.7 m), no
+    cooldown after a loop (``pgo_freq_frame`` 0), an informativeness gate
+    of 1.25 x ``pgo_tran_std`` = 5 cm (every object of this small world
+    stays in view, so the map stays consistent and the corrections at the
+    revisit are 3-7 cm, which the default gate of 20 cm rejects all), and
+    scan-context matches up to a cosine distance of 0.35 (0.25: none on this
+    world before the local candidates). GS trains 15 joint iterations a
+    frame, as many SDF batches as the SDF-only step's 15."""
+    base = dict(gs_on=True, track_on=True, pgo_on=True, gs_iters=15,
+                min_loop_travel_dist_ratio=1.2, pgo_min_loop_snr=1.25,
+                context_cosdist_threshold=0.35, pgo_freq_frame=0)
+    base.update(kw)
+    return small_cfg(**base)
+
+
+def slam_loop(torch, rb, n=70, verbose=False, **kw):
+    """SLAM with loop closure through process_frame on the synthetic
+    ``"60:circle"`` world, run past the end of its lap (70 frames): the
+    system trains the SDF alone until the first applied loop and GS from
+    the frame after it. The loop events, an applied loop and a rejection,
+    tracking, the map operations on the card against the CPU after the
+    loop, and the surfel kernels launched on the frames after it."""
+    from pings_tpu_torch.data.synthetic import SyntheticDataset
     from pings_tpu_torch.eval.traj import absolute_error
     from pings_tpu_torch.slam.pipeline import SlamSystem
 
-    from pings_tpu_torch.data.synthetic import kitti_sequence
+    ds = SyntheticDataset(sequence="60:circle")
+    ds._poses = [ds._pose(i) for i in range(n)]   # past the lap's end
+    cfg = loop_cfg(**kw)
+    log(f"slam loop: {n} frames of 60:circle (lap {12 * np.pi:.1f} m), loop "
+        f"candidates after {cfg.min_loop_travel_dist_ratio * cfg.max_range}"
+        f" m of travel; overrides {kw}")
+    torch.cuda.empty_cache()
+    system = SlamSystem(cfg, device="cuda")
+    system.cfg.gs_on = False   # GS from the frame after the first loop
+    reps, ms, pgo_ms, per_frame, gt = [], [], [], [], []
+    rb.reset_launches()
+    for i in range(n):
+        frame = ds[i]
+        gt.append(frame["gt_pose"])
+        before = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
+                  sum(rb.CONTRIB_LAUNCHES.values()))
+        system.loop_times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = system.process_frame(frame)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reps.append(rep)
+        n_ = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
+              sum(rb.CONTRIB_LAUNCHES.values()))
+        per_frame.append([a - b for a, b in zip(n_, before)])
+        if rep.loop_closed:
+            system.cfg.gs_on = True
+        if verbose:
+            err = system.poses[-1][:3, 3] - frame["gt_pose"][:3, 3]
+            log(f"slam loop frame {rep.frame_id}: {ms[-1]:.1f} ms, valid "
+                f"{rep.tracking_valid}, travel {system.travel[-1]:.2f} m, "
+                f"position error {np.round(err, 3).tolist()}")
+        if "pgo" in system.loop_times:
+            pgo_ms.append(system.loop_times["pgo"] * 1e3)
+        ev = system.loop_events[-1] if system.loop_events else None
+        if ev is not None and ev["frame"] == rep.frame_id:
+            log(f"slam loop frame {rep.frame_id}: {ms[-1]:.1f} ms, loop "
+                f"stage {rep.timings['loop'] * 1e3:.1f} ms, "
+                + (f"PGO solve {system.loop_times['pgo'] * 1e3:.1f} ms, "
+                   if "pgo" in system.loop_times else "")
+                + (f"correction {system.loop_times['correct'] * 1e3:.1f} "
+                   "ms, " if "correct" in system.loop_times else "")
+                + f"{ev['source']} candidate {ev['cand']}: {ev['decision']}"
+                f" (correction {ev.get('corr_tr_m')} m "
+                f"{ev.get('corr_rot_deg')} deg); launches {per_frame[-1]}")
+        if system.aborted:
+            break
+    gt_travel = float(sum(np.linalg.norm(a[:3, 3] - b[:3, 3])
+                          for a, b in zip(gt[1:], gt[:-1])))
+    ate = absolute_error(system.poses, gt, align=False)
+    ate_o = absolute_error(system.odom_only_poses, gt, align=False)
+    dec = [e["decision"] for e in system.loop_events]
+    counts = {d: dec.count(d) for d in sorted(set(dec))}
+    tried = {e["frame"] for e in system.loop_events}
+    loop_ms = [r.timings["loop"] * 1e3 for r in reps]
+    quiet_ms = [x for r, x in zip(reps, loop_ms) if r.frame_id not in tried]
+    applied = [e["frame"] for e in system.loop_events
+               if e["decision"] == "applied"]
+    after = [per_frame[i] for i in range(len(reps))
+             if applied and i > applied[0]]
+    log(f"slam loop: {len(reps)} frames, travel {system.travel[-1]:.1f} m "
+        f"(ground truth {gt_travel:.1f} m), "
+        f"lost {[r.frame_id for r in reps if not r.tracking_valid]}; "
+        f"decisions {counts} (sources "
+        f"{sorted(set(e['source'] for e in system.loop_events))}); loops "
+        f"{system.n_loops}, uninformative {system.n_loops_uninformative}; "
+        f"ATE SLAM {ate['ate_trans_rmse_m']:.4f} m "
+        f"{ate['ate_rot_rmse_deg']:.4f} deg, odometry alone "
+        f"{ate_o['ate_trans_rmse_m']:.4f} m {ate_o['ate_rot_rmse_deg']:.4f} "
+        f"deg; median ms per frame {statistics.median(ms[1:]):.1f}; loop "
+        f"stage ms: median of frames without an attempt "
+        f"{statistics.median(quiet_ms[1:]):.2f}, with one "
+        f"{statistics.median(x for r, x in zip(reps, loop_ms) if r.frame_id in tried) if tried else float('nan'):.1f}, "
+        f"max {max(loop_ms):.1f}; PGO solve ms "
+        f"{[round(x, 1) for x in pgo_ms]}; launches fwd/bwd/contrib after "
+        f"the first applied loop "
+        f"{[sum(x) for x in zip(*after)] if after else None}")
+    log(f"slam loop: loop_events {json.dumps(system.loop_events)}")
+    launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
+                    rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    lost = [r.frame_id for r in reps[1:] if not r.tracking_valid]
+    if (lost or system.aborted
+            or abs(system.travel[-1] - gt_travel) > 0.1 * gt_travel):
+        raise AssertionError(f"slam loop: lost track at {lost}, travel "
+                             f"{system.travel[-1]:.1f} m of {gt_travel:.1f}")
+    if not applied or len(dec) == len(applied):
+        raise AssertionError(f"slam loop: decisions {dec}: need an applied "
+                             "loop and a rejection")
+    bad = [r.frame_id for r in reps if any(
+        k in r.metrics and not np.isfinite(r.metrics[k])
+        for k in ("sdf_bce", "gs_psnr", "track_res_m"))
+        or "gs_nonfinite_steps" in r.metrics]
+    if bad or system.aborted:
+        raise AssertionError(f"slam loop: non-finite metrics at {bad}, "
+                             f"aborted {system.aborted}")
+    if not all(x[0] and x[1] for x in after[1:]) or not any(
+            x[2] for x in after):
+        raise AssertionError(f"slam loop: surfel kernels after the loop "
+                             f"{after}")
+    deltas = np.tile(np.eye(4), (len(system.poses), 1, 1))
+    for i, (P, O) in enumerate(zip(system.poses, system.odom_only_poses)):
+        deltas[i] = P @ np.linalg.inv(O)
+    check_map_ops(torch, "slam loop", system.m,
+                  torch.as_tensor(deltas.astype(np.float32), device="cuda"),
+                  applied[0])
+    return launches, system
 
+
+def cli_kitti(torch, rb):
+    """The command line on kitti at full width with the pose graph on:
+    write 12 frames with scripts/torch_make_kitti_data.py, run
+    ``pings_tpu_torch.cli.main`` on ``configs/kitti_synth.yaml`` over
+    them, and check the loader's frames, the run directory, tracking, the
+    pose graph and the kernels' launches."""
+    import tempfile
+
+    from pings_tpu_torch import cli
+    from pings_tpu_torch.config import Config
+    from pings_tpu_torch.data.base import dataset_factory
+    from pings_tpu_torch.eval.traj import absolute_error
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_make_kitti_data import make_kitti
+
+    n = 12
+    tmp = tempfile.mkdtemp(prefix="pings_cli_")
     t0 = time.perf_counter()
-    frames = kitti_sequence(6)
-    log(f"slam kitti: ray-cast 6 frames in {time.perf_counter() - t0:.1f} s, "
-        f"scans of {[len(f['points']) for f in frames]} points")
-    cfg = Config.load(os.path.join(ROOT, "configs", "kitti_synth.yaml"),
-                      overrides={"pgo_on": False})
+    make_kitti(tmp, n, workers=min(8, os.cpu_count() or 1))
+    t_write = time.perf_counter() - t0
+    data = os.path.join(tmp, "kitti_synth")
+    cfg_file = os.path.join(ROOT, "configs", "kitti_synth.yaml")
+    ds = dataset_factory("kitti", data, "00",
+                         Config.load(cfg_file, {"pc_path": data}))
+    ref = pool_map(kitti_ref_frame, range(n), [n] * n)
+    if len(ds) != n:
+        raise AssertionError(f"cli kitti: the loader has {len(ds)} frames")
+    for i in range(n):
+        f, g = ds[i], ref[i]
+        e = float(np.abs(f["points"] - g["points"]).max())
+        if (f["points"].shape != g["points"].shape or e > 1e-4
+                or not np.array_equal(f["img"]["cam2"], g["img"]["cam2"])
+                or not np.allclose(f["gt_pose"], g["gt_pose"], atol=1e-9)
+                or not np.allclose(f["T_c_l"]["cam2"], g["T_c_l"]["cam2"],
+                                   atol=1e-12)
+                or not np.allclose(f["K"]["cam2"], g["K"]["cam2"])):
+            raise AssertionError(f"cli kitti: loader frame {i} differs from "
+                                 f"kitti_sequence's (points {e})")
+    log(f"cli kitti: wrote {n} frames in {t_write:.1f} s; the loader's "
+        "frames equal kitti_sequence's (scans, images, poses, rig)")
+
+    class Recorded(cli.SlamSystem):
+        """The cli's system, timed per frame with a synchronize on both
+        sides and its kernel launches counted per frame."""
+        last = None
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            Recorded.last = self
+            self.ms, self.launch_log, self.reports = [], [], []
+
+        def process_frame(self, frame):
+            before = (sum(rb.LAUNCHES.values()),
+                      sum(rb.BWD_LAUNCHES.values()),
+                      sum(rb.CONTRIB_LAUNCHES.values()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = super().process_frame(frame)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            n_ = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
+                  sum(rb.CONTRIB_LAUNCHES.values()))
+            self.launch_log.append([a - b for a, b in zip(n_, before)])
+            self.reports.append(rep)
+            return rep
+
+    out = os.path.join(tmp, "runs")
+    cli.SlamSystem = Recorded
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    system = SlamSystem(cfg, device="cuda")
-    reps, ms, launches = slam_run(torch, rb, "kitti", system, frames)
+    rb.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = cli.main([cfg_file, "--data-path", data, "--range", "0", str(n),
+                        "1", "--output", out, "--quiet", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        cli.SlamSystem = Recorded.__mro__[1]
+    launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
+                    rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
-    gt = [f["gt_pose"] for f in frames]
-    ate = absolute_error(system.poses, gt, align=False)
-    log("slam kitti: position error per frame (m) "
-        + str([np.round(p[:3, 3] - g[:3, 3], 4).tolist()
-               for p, g in zip(system.poses, gt)]))
+    system = Recorded.last
+    reps, ms = system.reports, system.ms
+    for r, m_, l_ in zip(reps, ms, system.launch_log):
+        mt = r.metrics
+        log(f"cli kitti frame {r.frame_id}: {m_:.1f} ms, stages "
+            + ", ".join(f"{k}={v * 1e3:.1f}" for k, v in r.timings.items())
+            + f" ms; valid {r.tracking_valid}, track iterations "
+            f"{mt.get('track_iter', 0)}, residual "
+            f"{mt.get('track_res_m', float('nan')):.4f} m, syncs "
+            f"{mt.get('track_syncs', 0)}; map {r.n_points} points, gs_iters "
+            f"{mt.get('gs_iters', 0)}, gs_psnr "
+            f"{mt.get('gs_psnr', float('nan')):.3f}; launches "
+            f"fwd/bwd/contrib {l_}")
+    run_dir = [os.path.join(out, d) for d in os.listdir(out)][0]
+    files = ("config_all.yaml", "run_info.json", "poses_kitti.txt",
+             "odom_poses_kitti.txt", "pose_eval.csv", "time_table.csv",
+             "summary.json", "metrics_table.csv",
+             os.path.join("model", "pin_map.npz"))
+    missing = [f for f in files if not os.path.exists(
+        os.path.join(run_dir, f))]
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    gt = [f["gt_pose"] for f in ref]
+    ate = absolute_error(system.poses[:6], gt[:6], align=False)
     stage = {k: statistics.median(r.timings[k] * 1e3 for r in reps[1:])
              for k in reps[1].timings}
-    syncs = [r.metrics.get("track_syncs", 0) for r in reps[1:]]
-    log(f"slam kitti: median ms per mapped frame (frames 1-5) "
+    sc_nodes = [nd.frame_id for nd in system.sc.nodes]
+    n_odo = sum(not f_.is_loop for f_ in system.pgo.factors)
+    log(f"cli kitti: {len(reps)} frames in {wall:.1f} s through cli.main; "
+        f"median ms per mapped frame (frames 1-{n - 1}) "
         f"{statistics.median(ms[1:]):.1f}; frame 0 {ms[0]:.1f} ms; median "
-        "stage ms " + ", ".join(f"{k}={v:.1f}" for k, v in stage.items())
-        + f"; tracker device-to-host reads per frame {syncs}; ATE "
-        f"{ate['ate_trans_rmse_m']:.4f} m {ate['ate_rot_rmse_deg']:.4f} deg; "
-        f"map {reps[-1].n_points} points; peak device memory {mem:.3f} GiB; "
-        f"launches {launches}; card {smi('name,power.limit')}")
+        "stage ms " + ", ".join(f"{k}={v:.2f}" for k, v in stage.items())
+        + f"; ATE frames 0-5 {ate['ate_trans_rmse_m']:.4f} m "
+        f"{ate['ate_rot_rmse_deg']:.4f} deg; summary ATE "
+        f"{summary.get('ate_trans_rmse_m')}, loops {summary['loops']}, "
+        f"events {summary['loop_events']}; pose graph "
+        f"{len(system.pgo.poses)} nodes, {n_odo} odometry factors, scan "
+        f"context nodes at {sc_nodes}; map {reps[-1].n_points} points; "
+        f"peak device memory {mem:.3f} GiB; launches {launches}; run dir "
+        f"{sorted(os.listdir(run_dir))}; card {smi('name,power.limit')}")
+    if missing:
+        raise AssertionError(f"cli kitti: run directory lacks {missing}")
+    if not system.cfg.pgo_on or summary["frames"] != n:
+        raise AssertionError(f"cli kitti: pgo_on {system.cfg.pgo_on}, "
+                             f"frames {summary['frames']}")
     lost = [r.frame_id for r in reps[1:] if not r.tracking_valid]
     if lost:
-        raise AssertionError(f"slam kitti: lost track at frames {lost}")
-    # the ATE over these frames depends on the decoders' seed in both
+        raise AssertionError(f"cli kitti: lost track at frames {lost}")
+    # the ATE over frames 0-5 depends on the decoders' seed in both
     # packages (scripts/slam_kitti_seeds.py, seeds 42 and 0-5: the JAX
     # package on the CPU 0.104-0.250 m, the port on an H100 0.137-0.270 m,
     # 0.22 at this seed): the bar sits just above that spread
     if not (ate["ate_trans_rmse_m"] < 0.28 and ate["ate_rot_rmse_deg"] < 1.0):
-        raise AssertionError(f"slam kitti: ATE {ate}")
+        raise AssertionError(f"cli kitti: ATE {ate}")
+    if (len(system.pgo.poses) != n or n_odo != n - 1
+            or sc_nodes != [0, 5, 10]):
+        raise AssertionError(f"cli kitti: pose graph {len(system.pgo.poses)} "
+                             f"nodes, {n_odo} odometry factors, scan context "
+                             f"nodes {sc_nodes}")
+    if not all("loop" in r.timings and np.isfinite(r.timings["loop"])
+               for r in reps):
+        raise AssertionError("cli kitti: a frame has no loop stage time")
     fwd, bwd, contrib = launches["surfel"]
     if not (fwd and bwd and contrib):
-        raise AssertionError(f"slam kitti: surfel kernels not all launched "
+        raise AssertionError(f"cli kitti: surfel kernels not all launched "
                              f"{launches}")
     # frame 0 is held out of the keyframes (gs_eval_hold_out_every 5), so
     # the first GS iterations run on frame 1
     if not all("gs_psnr" in r.metrics for r in reps[1:]):
-        raise AssertionError("slam kitti: a frame trained no Gaussians")
+        raise AssertionError("cli kitti: a frame trained no Gaussians")
+    deltas = np.tile(np.eye(4), (n, 1, 1))
+    deltas[:, :3, 3] = np.linspace(0.0, 0.5, n)[:, None]
+    check_map_ops(torch, "cli kitti", system.m,
+                  torch.as_tensor(deltas.astype(np.float32), device="cuda"),
+                  n // 2)
     return launches
 
 
@@ -1090,7 +1439,7 @@ def slam_small(torch, rb):
     from pings_tpu_torch.slam.pipeline import SlamSystem
 
     cfg = small_cfg(gs_on=False, track_on=True, pgo_on=False)
-    ds = SyntheticDataset("12:line")
+    ds = SyntheticDataset(sequence="12:line")
     system = SlamSystem(cfg, device="cuda")
     t0 = time.perf_counter()
     reps, ms, lid = slam_run(torch, rb, "12:line", system,
@@ -1110,7 +1459,7 @@ def slam_small(torch, rb):
 
     cfg = small_cfg(gs_on=True, track_on=True, pgo_on=False, gs_iters=8,
                     freeze_after_frame=100)
-    ds = SyntheticDataset("6:line")
+    ds = SyntheticDataset(sequence="6:line")
     system = SlamSystem(cfg, device="cuda")
     t0 = time.perf_counter()
     reps, ms, launches = slam_run(torch, rb, "6:line", system,
@@ -1134,6 +1483,11 @@ def main():
               "needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import scipy
+
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__} (CUDA "
+        f"{torch.version.cuda}), numpy {np.__version__}, scipy "
+        f"{scipy.__version__}")
     from pings_tpu_torch.ops import _build
     from pings_tpu_torch.ops import raster_blend as rb
 
@@ -1267,13 +1621,17 @@ def main():
     c_3 = train_path(torch, rb, "kitti 3d_gs", sys_3, train_frames, 8)
     del sys_3
     torch.cuda.empty_cache()
-    # SLAM from frame 0 through process_frame
-    l_k = slam_kitti(torch, rb)
+    # SLAM from frame 0 through process_frame: the command line on kitti
+    # with the pose graph on, loop closure on a small circuit, the small
+    # LiDAR-only and GS-SLAM runs
+    l_k = cli_kitti(torch, rb)
+    l_l, _ = slam_loop(torch, rb)
     l_s = slam_small(torch, rb)
     for kind, i in (("fwd", 0), ("bwd", 1), ("contrib", 2)):
         for mode, c in (("surfel", c_s), ("3dgs", c_3)):
             launches[kind, mode] = (launches.get((kind, mode), 0) + c[i]
-                                    + l_k[mode][i] + l_s[mode][i])
+                                    + l_k[mode][i] + l_l[mode][i]
+                                    + l_s[mode][i])
 
     # 5. stages, real tables, kernel times --------------------------------
     log("SM clock before the kernel rounds (now, max): "

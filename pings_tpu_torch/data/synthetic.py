@@ -8,7 +8,8 @@ that the port can train on the real scenes without the JAX package:
 (:200), ``_circuit_point`` (:238) and the camera and LiDAR set-up of
 ``make_kitti`` (:253-318, here ``kitti_rig``, ``kitti_poses``,
 ``kitti_scan`` and ``kitti_frame``), and ``SyntheticDataset``
-(:128-224), the ``"N:line|circle"`` sequences of the default world. Worlds
+(:128-224), the ``"N:line|circle"`` sequences of the default world,
+registered as the ``"synthetic"`` loader as there (:127). Worlds
 are lists of analytic primitives (planes, boxes, spheres, a room shell)
 that are ray-cast.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from pings_tpu_torch.data.base import BaseDataset, register_loader
 from pings_tpu_torch.utils import pose as hp
 from pings_tpu_torch.utils.pose import se3_inv, so3_exp
 
@@ -128,18 +130,21 @@ def default_world():
     ]
 
 
-class SyntheticDataset:
+@register_loader("synthetic")
+class SyntheticDataset(BaseDataset):
     """Frames of the default world from a straight or circular path.
-    ``sequence`` is ``"<n_frames>[:<circle|line>]"``. A frame is the dict
+    ``sequence`` is ``"<n_frames>[:<circle|line>]"``; ``data_path`` is
+    ignored. A frame is the dict
     ``SlamSystem.process_frame`` takes: a 32-beam LiDAR scan with 1 cm of
     range noise and a 160x120 pinhole camera looking along the body's +x,
     with the ground-truth pose."""
 
     CAM = "cam"
 
-    def __init__(self, sequence: str = "40:circle", n_beams: int = 32,
-                 n_azimuth: int = 512, width: int = 160, height: int = 120,
-                 seed: int = 0):
+    def __init__(self, data_path: str = "", sequence: str = "40:circle",
+                 cfg=None, n_beams: int = 32, n_azimuth: int = 512,
+                 width: int = 160, height: int = 120, seed: int = 0):
+        super().__init__(data_path, sequence, cfg)
         parts = (sequence or "40:circle").split(":")
         self.n_frames = int(parts[0]) if parts[0] else 40
         self.traj = parts[1] if len(parts) > 1 else "circle"
@@ -398,20 +403,24 @@ def kitti_frame(T: np.ndarray, objects):
     return img, depth, (depth <= 0).astype(np.float32)
 
 
-def kitti_sequence(n_frames: int):
-    """Frames 0..n_frames-1 of the kitti circuit as the kitti loader gives
-    them to ``SlamSystem.process_frame``: the LiDAR scan (noise drawn with
-    the frame id as seed) and the camera image, without depth or sky, with
-    the ground-truth pose."""
-    objects = circuit_world()
-    poses = kitti_poses(n_frames)
+def kitti_sequence_frame(fid: int, objects, poses):
+    """Frame ``fid`` of the kitti circuit as the kitti loader gives it to
+    ``SlamSystem.process_frame``: the LiDAR scan (noise drawn with the
+    frame id as seed) and the camera image, without depth or sky, with the
+    ground-truth pose. ``objects``: ``circuit_world()``; ``poses``:
+    ``kitti_poses(n)`` with n > fid."""
     T_c_l, K, _, _ = kitti_rig()
-    frames = []
-    for fid in range(n_frames):
-        img, _, _ = kitti_frame(poses[fid], objects)
-        frames.append({
-            "points": kitti_scan(poses[fid], objects,
+    img, _, _ = kitti_frame(poses[fid], objects)
+    return {"points": kitti_scan(poses[fid], objects,
                                  np.random.default_rng(fid)),
             "img": {"cam2": img}, "K": {"cam2": K}, "T_c_l": {"cam2": T_c_l},
-            "gt_pose": poses[fid]})
-    return frames
+            "gt_pose": poses[fid]}
+
+
+def kitti_sequence(n_frames: int):
+    """Frames 0..n_frames-1 of the kitti circuit (``kitti_sequence_frame``
+    of each)."""
+    objects = circuit_world()
+    poses = kitti_poses(n_frames)
+    return [kitti_sequence_frame(fid, objects, poses)
+            for fid in range(n_frames)]

@@ -23,13 +23,12 @@ import argparse
 import glob
 import json
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
 
 from pings_tpu_torch.config import Config
+from pings_tpu_torch.data.imageio import write_png
 
 _NOT_PORTED = ("eval", "recon_3d", "sdf_slice", "export_points")
 
@@ -116,23 +115,6 @@ def _local_data(cfg, system, center: np.ndarray):
         0, system.travel_dev, float(cfg.local_map_radius), float(np.inf),
         max_local=cfg.max_local_points)
     return gather_local_data(system.m, mask, cfg.max_local_points)
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> an 8-bit RGB PNG."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
 
 
 def render_poses(args, cfg, system, poses, out_dir):

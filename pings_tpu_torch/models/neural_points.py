@@ -7,12 +7,12 @@ reader for the ``map.*`` keys of a JAX checkpoint. Every per-point tensor
 has ``cap + 1`` rows; the last is the dump/padding row. The query
 (``make_stencil`` :272, ``query_neighbor_idx`` :295-335,
 ``eval_neighbors`` :338-374, ``query_feature`` :380-400) and
-``accumulate_certainty`` (:403-409) are here too; the loop-closure
-maintenance (``adjust_map``, ``recreate_hash``, ``prune_map``) is not
-ported yet.
+``accumulate_certainty`` (:403-409) are here too, and the loop-closure
+maintenance: ``adjust_map`` (:419-428), ``recreate_hash`` (:431-463) and
+``prune_map`` (:466-475).
 
-``insert_points`` and ``accumulate_certainty`` write into the map's own
-tensors: the feature arrays are the leaves the optimizers hold, and their
+``insert_points``, ``accumulate_certainty`` and the loop-closure functions
+write into the map's own tensors (where the JAX ones donate the map): the feature arrays are the leaves the optimizers hold, and their
 Adam moments persist across an insert as in the JAX package.
 """
 
@@ -27,7 +27,8 @@ import torch
 
 from pings_tpu_torch import resolve_device
 from pings_tpu_torch.ops.transforms import (
-    sum_sq_fused, voxel_hash)
+    inv_cell, quat_multiply, quat_normalize, rotmat_to_quat, sum_sq_fused,
+    voxel_hash)
 
 _FIELDS = ("positions", "quats", "geo_feat", "color_feat", "rgb",
            "ts_create", "ts_update", "certainty", "valid_mask",
@@ -130,7 +131,7 @@ def insert_points(m: NeuralPointMap, pts: torch.Tensor, rgb: torch.Tensor,
     H = m.buffer_size
     M = pts.shape[0]
     mask = mask & torch.all(torch.isfinite(pts), dim=-1)
-    coords = torch.floor(pts / res).to(torch.int32)
+    coords = torch.floor(pts * inv_cell(res)).to(torch.int32)
     bucket = voxel_hash(coords, H)
 
     existing = m.hash_table[bucket].long()
@@ -301,7 +302,7 @@ def query_neighbor_idx(m: NeuralPointMap, qpts: torch.Tensor, k: int = 6,
                               device=dev)
     res = m.resolution
     cap = m.capacity
-    coords = torch.floor(qpts / res).to(torch.int32)
+    coords = torch.floor(qpts * inv_cell(res)).to(torch.int32)
     ncoords = coords[:, None, :] + stencil[None, :, :]
     idx = m.hash_table[voxel_hash(ncoords, m.buffer_size)].long()
     invalid = idx < 0
@@ -345,7 +346,7 @@ def eval_neighbors(m: NeuralPointMap, qpts: torch.Tensor,
     w = w / torch.clamp_min(wsum, eps)
 
     ki = kinvalid[..., None]
-    off = torch.where(ki, zero, diff / res)
+    off = torch.where(ki, zero, diff * inv_cell(res))
     gf = torch.where(ki, zero, m.geo_feat[kidx])
     cf = torch.where(ki, zero, m.color_feat[kidx])
     nn_count = torch.sum(~kinvalid, dim=-1)
@@ -362,3 +363,87 @@ def query_feature(m: NeuralPointMap, qpts: torch.Tensor, k: int = 6,
     kidx = query_neighbor_idx(m, qpts, k, stencil_r, search_alpha,
                               use_local_mask)
     return eval_neighbors(m, qpts, kidx, stencil_r, search_alpha)
+
+
+# ---------------------------------------------------------------------------
+# loop-closure maintenance
+# ---------------------------------------------------------------------------
+
+def frame_deltas(pose_deltas: torch.Tensor, ts: torch.Tensor
+                 ) -> torch.Tensor:
+    """The pose-graph correction (N, 4, 4) of each frame id in ``ts``
+    (clipped to the table ``pose_deltas``, (F, 4, 4))."""
+    return pose_deltas[torch.clamp(ts.long(), 0, pose_deltas.shape[0] - 1)]
+
+
+def repose(D: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """``pts`` (N, 3) moved by the transforms ``D`` (N, 4, 4), in float64
+    by separate elementwise operations and rounded once to float32, so that
+    the card and the CPU give the same bits."""
+    D, p = D.double(), pts.double()
+    out = (D[:, :3, 0] * p[:, 0:1] + D[:, :3, 1] * p[:, 1:2]
+           + D[:, :3, 2] * p[:, 2:3] + D[:, :3, 3])
+    return out.float()
+
+
+@torch.no_grad()
+def adjust_map(m: NeuralPointMap, pose_deltas: torch.Tensor
+               ) -> NeuralPointMap:
+    """Re-pose every point by the pose-graph correction of its creation
+    frame, in place. ``pose_deltas``: (max_frames, 4, 4) f32,
+    T_new @ inv(T_old)."""
+    D = frame_deltas(pose_deltas, m.ts_create)
+    m.positions.copy_(repose(D, m.positions))
+    dq = rotmat_to_quat(D[:, :3, :3])
+    m.quats.copy_(quat_normalize(quat_multiply(dq, m.quats)))
+    return m
+
+
+@torch.no_grad()
+def recreate_hash(m: NeuralPointMap, ref_ts: int | None = None
+                  ) -> NeuralPointMap:
+    """Rebuild the hash table from scratch, in place. A bucket's conflict
+    goes to the most recently updated point; with ``ref_ts`` to the point
+    whose creation frame is closest to ``ref_ts`` (before a loop is
+    verified, so that the tracker registers against the revisited, old
+    geometry). Two passes over ``buffer_size + 1`` segments (the last one
+    holds the inactive points): the best time per bucket, then the lowest
+    index among the points at it. Equal to the JAX version's table."""
+    dev = m.positions.device
+    cap, H = m.capacity, m.buffer_size
+    coords = torch.floor(m.positions * inv_cell(m.resolution)).to(
+        torch.int32)
+    bucket = voxel_hash(coords, H)
+    arange = torch.arange(cap + 1, dtype=torch.int64, device=dev)
+    active = m.valid_mask & (arange < m.count.long())
+    bsel = torch.where(active, bucket.long(), torch.full_like(arange, H))
+    if ref_ts is None:
+        ts = torch.where(active, m.ts_update, -1)
+    else:
+        ts = torch.where(active, -torch.abs(m.ts_create - int(ref_ts)),
+                         -(1 << 30))
+    seg = lambda fill, dtype: torch.full((H + 1,), fill, dtype=dtype,
+                                         device=dev)
+    best_ts = seg(torch.iinfo(torch.int32).min, torch.int32).scatter_reduce(
+        0, bsel, ts.to(torch.int32), reduce="amax", include_self=False)
+    is_best = active & (ts >= best_ts[bsel])
+    cand = torch.where(is_best, arange, torch.full_like(arange, cap + 1))
+    win = seg(cap + 1, torch.int64).scatter_reduce(
+        0, bsel, cand, reduce="amin", include_self=False)
+    table = torch.where(win < cap + 1, win, -1)[:H]
+    m.hash_table.copy_(table.to(torch.int32))
+    return m
+
+
+@torch.no_grad()
+def prune_map(m: NeuralPointMap, max_prune_certainty: float
+              ) -> NeuralPointMap:
+    """Deactivate the points of certainty at or under
+    ``max_prune_certainty``, in place; rows past ``count`` keep their
+    flags. Call ``recreate_hash`` afterwards."""
+    arange = torch.arange(m.capacity + 1, device=m.positions.device)
+    keep = m.valid_mask & (m.certainty > max_prune_certainty)
+    keep |= arange >= m.count.long()
+    keep &= m.valid_mask
+    m.valid_mask.copy_(keep)
+    return m

@@ -123,7 +123,10 @@ def make_track_loop(cfg):
             # equilibration: xi = y / d where (H / d d^T + lm I) y = g / d
             d = torch.sqrt(torch.clamp_min(torch.diagonal(stats.H), 1e-9))
             Hs = stats.H / (d[:, None] * d[None, :])
-            xi = torch.linalg.solve(Hs + lm * eye6, stats.g / d) / d
+            # a singular system gives a non-finite step, as in the JAX
+            # version (whose solve does not raise): the loop stops there
+            xi, info = torch.linalg.solve_ex(Hs + lm * eye6, stats.g / d)
+            xi = torch.where(info == 0, xi / d, float("nan"))
             T_new = tf.se3_exp(xi) @ T
             n_tr = torch.linalg.vector_norm(xi[:3])
             n_rot = torch.linalg.vector_norm(xi[3:])

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from pings_tpu_torch.ops.transforms import inv_cell
+
 _P1, _P2, _P3 = 73856093, 19349669, 83492791      # neural_points primes
 _Q1, _Q2, _Q3 = 2654435761, 805459861, 3266489917  # independent verify hash
 _U32 = 0xFFFFFFFF
@@ -84,7 +86,7 @@ def scan_incidence_cos(points: torch.Tensor, mask: torch.Tensor,
     m = table_size
     dev = points.device
     pts = torch.where(mask[:, None], points, torch.full_like(points, 1e6))
-    ijk = torch.floor(pts / voxel).to(torch.int32)
+    ijk = torch.floor(pts * inv_cell(voxel)).to(torch.int32)
     h, v = _keys(ijk, m)
 
     w = mask.to(torch.float32)

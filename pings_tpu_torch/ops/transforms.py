@@ -2,7 +2,7 @@
 SE(3), the voxel hash and the camera projection of a scan.
 
 Counterpart of ``pings_tpu/ops/transforms.py`` (``quat_normalize`` ..
-``quat_to_rotmat`` :32-125, ``so3_exp``/``skew``/``se3_exp`` :156-206,
+``quat_to_rotmat`` :32-76, ``rotmat_to_quat`` :79-115, ``so3_exp``/``skew``/``se3_exp`` :156-206,
 ``voxel_hash`` :241, ``voxel_down_sample_mask`` :254-281,
 ``project_points_to_cam`` :321, ``splat_depth_map`` :350,
 ``colorize_points`` :371-383, ``crop_range_mask`` :390-399).
@@ -13,6 +13,7 @@ are 4x4 with points as row vectors, ``p' = T @ [p; 1]``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 HASH_PRIMES = (73856093, 19349669, 83492791)
@@ -51,6 +52,40 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4), w >= 0.
+
+    Shepperd's method without branches: all four candidates are formed
+    and the one of the largest of (trace, m00, m11, m22) is taken (the
+    first on a tie), so a negative trace takes a diagonal candidate."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0], dim=-1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1], dim=-1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2], dim=-1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3], dim=-1)
+
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)      # (..., 4 cand, 4)
+    q = torch.take_along_dim(cands, idx[..., None, None], dim=-2)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return quat_normalize(q)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -104,6 +139,16 @@ def se3_exp(xi: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+def inv_cell(size: float) -> float:
+    """The float32 reciprocal of a cell size. Inside a jit, where the size
+    is a constant, XLA computes ``p / size`` as ``p * (1 / size)``; the
+    JAX package's map operations (insert, query, hash rebuild, scan
+    normals) therefore place a point exactly on a cell face, such as x =
+    9.0 at 0.3 m, in the upper cell. The port multiplies by this number to
+    give the same cells."""
+    return float(np.float32(1.0) / np.float32(size))
 
 
 def voxel_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:

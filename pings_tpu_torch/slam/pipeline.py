@@ -3,17 +3,18 @@ point and its training.
 
 Counterpart of ``pings_tpu/slam/pipeline.py``'s ``SlamSystem``:
 ``process_frame`` (:154-301) runs one LiDAR + camera frame through
-preprocessing, odometry (``Tracker``), the map update (``_map_update``,
-:468-583: insert, local window, scan-normal incidence, ray sampling, the
-replay pool, certainty), the SDF-only training (``_train``, :603-632; the
+preprocessing, odometry (``Tracker``), loop closure (:253-274: the pose
+graph and scan-context detection on the host, ``_try_loops`` :327-465 with
+the verifying registration and the map's re-posing on the device), the map
+update (``_map_update``, :468-583: insert, local window, scan-normal
+incidence, ray sampling, the replay pool, certainty), the SDF-only training (``_train``, :603-632; the
 scan step on frame 0, or every frame without cameras or GS) and the joint
 GS+SDF iterations (``_train_gs``, :652-840). ``save`` and ``load``
 (:925-954) write and read the JAX package's checkpoint layout;
 ``render_cam`` (:901-922) renders the map's current local window.
 
-Not ported yet, and refused at construction: loop closure (``pgo_on``),
-the dynamic filter, semantics, mono depth, the merged cloud, the TSDF mesh
-and deskewing.
+Not ported yet, and refused at construction: the dynamic filter,
+semantics, mono depth, the merged cloud, the TSDF mesh and deskewing.
 
 State-synchronization model: the trainable leaves the SDF and GS
 optimizers hold are the map's feature tensors, the decoders' weights and
@@ -49,11 +50,14 @@ from pings_tpu_torch.models.spawn import (
     spawn_gaussians, spawn_kwargs_from_cfg)
 from pings_tpu_torch.odometry.tracker import Tracker
 from pings_tpu_torch.ops.scan_normals import scan_incidence_cos
+from pings_tpu_torch.slam.loop_detector import (
+    ScanContextManager, detect_local_loop)
+from pings_tpu_torch.slam.pgo import PoseGraph
 from pings_tpu_torch.utils import pose as hp
 
 MAX_FRAMES = 100000
 # options whose code paths are not ported yet
-UNPORTED = ("pgo_on", "dynamic_filter_on", "semantic_on", "mono_depth_on",
+UNPORTED = ("dynamic_filter_on", "semantic_on", "mono_depth_on",
             "save_merged_pc", "save_tsdf_mesh", "deskew")
 
 
@@ -88,6 +92,8 @@ class SlamSystem:
             self.decoders = init_decoders(gen, cfg, self.device)
         self.pool = rp.init_pool(cfg.pool_capacity, self.device)
         self.tracker = Tracker(cfg, self.device) if cfg.track_on else None
+        self.pgo = PoseGraph(cfg) if cfg.pgo_on else None
+        self.sc = ScanContextManager(cfg) if cfg.pgo_on else None
         self.campool = CamPool(cfg) if cfg.gs_on else None
         if self.campool:
             self.exposure, self.cam_delta = self.campool.init_param_pools(
@@ -113,6 +119,14 @@ class SlamSystem:
         self.lose_track_count = 0
         self.aborted = False
         self.abort_reason = ""
+        self.n_loops = 0
+        self.n_loops_uninformative = 0
+        self.loop_events: List[dict] = []   # one entry per loop attempt
+        self._last_track_res = float("nan")  # this frame's odometry residual
+        self._last_loop_fid = -(10 ** 9)
+        # seconds of the last PoseGraph.try_loop_closure and of the last
+        # applied loop's re-posing (adjust_map, recreate_hash, the pool)
+        self.loop_times: Dict[str, float] = {}
         self._odom_noise_rng = np.random.default_rng(cfg.odom_noise_seed)
         # robot-stop detection
         self.stop_count = 0
@@ -191,6 +205,7 @@ class SlamSystem:
                 rep.tracking_valid = res.valid and not res.degenerate
                 T = res.T_w_l if rep.tracking_valid else T_guess
                 rep.metrics["track_res_m"] = res.mean_res
+                self._last_track_res = float(res.mean_res)
                 rep.metrics["track_iter"] = res.iterations
                 rep.metrics["track_valid_ratio"] = res.valid_ratio
                 rep.metrics["track_degen"] = float(res.degenerate)
@@ -253,7 +268,28 @@ class SlamSystem:
         rep.pose = self.poses[-1]
         self._sync()
         rep.timings["tracking"] = time.time() - t1
-        rep.timings["loop"] = 0.0     # loop closure is not ported yet
+
+        # ---------- loop closure ----------
+        t2 = time.time()
+        if self.pgo is not None:
+            self.pgo.add_frame_node(fid, self.poses[-1])
+            if fid > 0:
+                self.pgo.add_odometry_factor(fid - 1, fid, self.T_rel_last)
+            src_np = pre.source_points[pre.source_mask]
+            src_feats = self._context_feats(src_np) \
+                if cfg.loop_with_feature else None
+            if fid % max(cfg.local_map_context_latency, 1) == 0:
+                self.sc.add_node(fid, src_np, feats=src_feats)
+            # cooldown after a successful loop: a revisit segment would
+            # otherwise close a loop every frame
+            cooled = fid - self._last_loop_fid > cfg.pgo_freq_frame
+            if fid > 10 and rep.tracking_valid and cooled:
+                rep.loop_closed = self._try_loops(pre, fid, src_np,
+                                                  src_feats)
+                if rep.loop_closed:
+                    self._last_loop_fid = fid
+        self._sync()
+        rep.timings["loop"] = time.time() - t2
 
         # ---------- map update + SDF supervision ----------
         # a stopped robot adds no new observations (except at start-up)
@@ -271,6 +307,144 @@ class SlamSystem:
         rep.n_points = int(self.m.count)
         rep.timings["training"] = time.time() - t4
         return rep
+
+    # -- loop closure internals ---------------------------------------------
+    @torch.no_grad()
+    def _context_feats(self, src_np: np.ndarray) -> np.ndarray:
+        """Neural-point geometric features interpolated at the scan points
+        (sensor frame, queried in the world frame at the current pose), for
+        feature-augmented scan contexts."""
+        T = self.poses[-1]
+        pts_w = (src_np @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        q = npm.query_feature(self.m, torch.as_tensor(pts_w,
+                                                      device=self.device),
+                              k=self.cfg.query_nn_k,
+                              stencil_r=self.cfg.num_nei_cells,
+                              search_alpha=self.cfg.search_alpha)
+        feat = torch.sum(self.m.geo_feat[q.nn_idx] * q.weights[..., None],
+                         dim=-2)
+        return torch.where(q.valid[:, None], feat, 0.0).cpu().numpy()
+
+    def _try_loops(self, pre: PreprocessedFrame, fid: int,
+                   src_np: np.ndarray,
+                   src_feats: Optional[np.ndarray] = None) -> bool:
+        """Find a loop candidate (local by distance, else by scan context),
+        verify it by registration against the map re-bucketed around the
+        candidate's frame, gate it (drift, rotation, residual ratio,
+        informativeness, the pose graph's residual) and, if it passes,
+        correct the poses, the map, the replay pool and the keyframes.
+        Each attempt appends to ``loop_events`` with its decision."""
+        cfg = self.cfg
+        drift = self.pgo.estimate_drift(self.travel[-1])
+        cand = detect_local_loop(self.poses, list(range(len(self.poses))),
+                                 self.travel, fid, drift, cfg)
+        init_T = None
+        cand_fid = None
+        hit = None
+        if cand is not None:
+            cand_fid = cand[0]
+            # a local candidate is verified from the current pose: the
+            # registration measures the drift against the revisited
+            # geometry, and the candidate may sit max_loop_dist away
+            init_T = self.poses[-1].copy()
+        elif cfg.local_map_context and self.sc is not None:
+            hit = self.sc.detect_global_loop(src_np, fid, feats=src_feats)
+            if hit is not None:
+                # a scan-context candidate starts from the candidate's pose
+                # with the match's yaw and lateral offset
+                cand_fid, sc_dist, yaw, side = hit
+                T_c = self.poses[cand_fid].copy()
+                adj = np.eye(4)
+                adj[:3, :3] = hp.so3_exp(np.array([0, 0, -yaw]))
+                adj[:3, 3] = [0.0, -side, 0.0]
+                init_T = T_c @ adj
+        if cand_fid is None:
+            return False
+        ev = {"frame": fid, "cand": int(cand_fid),
+              "source": "local" if cand is not None else "scan_context",
+              "drift_est_m": round(drift, 3)}
+        if cand is None and hit is not None:
+            ev["sc_cosdist"] = round(float(sc_dist), 4)
+        self.loop_events.append(ev)
+
+        def _reject(why: str) -> bool:
+            ev["decision"] = why
+            self.m = npm.recreate_hash(self.m)   # the recency hash again
+            return False
+        # verify against the revisited (old) geometry: the hash re-bucketed
+        # around the candidate's frame
+        self.m = npm.recreate_hash(self.m, int(cand_fid))
+        res = self.tracker.track(self.m, self.decoders, pre.source_points,
+                                 pre.source_mask, init_T,
+                                 max_iter=cfg.reg_iter_n) \
+            if self.tracker else None
+        if res is None or not res.valid or res.degenerate:
+            return _reject("registration_invalid")
+        T_loop = res.T_w_l  # corrected world pose of the current frame
+        ev["reg_res_m"] = round(float(res.mean_res), 4)
+        ev["odom_res_m"] = round(self._last_track_res, 4)
+        # the correction must be explainable by odometry drift (1 %/m of
+        # travel since the last loop, with a floor): a loop hallucinated on
+        # self-similar geometry can also register
+        corr_tr = float(np.linalg.norm(T_loop[:3, 3] - self.poses[-1][:3, 3]))
+        corr_rot = hp.rotation_angle_deg(
+            self.poses[-1][:3, :3].T @ T_loop[:3, :3])
+        ev["corr_tr_m"] = round(corr_tr, 3)
+        ev["corr_rot_deg"] = round(float(corr_rot), 3)
+        drift_bound = max(2.0, 3.0 * drift)
+        travel_since = max(self.travel[-1] - self.pgo.travel_dist_at_loop,
+                           0.0)
+        rot_bound = max(cfg.pgo_loop_rot_floor_deg,
+                        3.0 * cfg.pgo_drift_rot_deg_per_m * travel_since)
+        if corr_tr > drift_bound:
+            return _reject("drift_bound")
+        if cfg.pgo_loop_rot_floor_deg > 0 and corr_rot > rot_bound:
+            return _reject("rot_bound")
+        # a true revisit registers against the same geometry the odometry
+        # just did, with a comparable residual
+        if (cfg.pgo_max_loop_res_ratio > 0
+                and np.isfinite(self._last_track_res)
+                and float(res.mean_res)
+                > cfg.pgo_max_loop_res_ratio * self._last_track_res):
+            return _reject("res_ratio")
+        # informativeness: a correction of the order of the loop's own
+        # registration noise cannot improve the trajectory
+        if (cfg.pgo_min_loop_snr > 0
+                and corr_tr < cfg.pgo_min_loop_snr * cfg.pgo_tran_std):
+            self.n_loops_uninformative += 1
+            return _reject("uninformative")
+        T_i_j = hp.se3_inv(self.poses[cand_fid]) @ T_loop
+        old_poses = [p.copy() for p in self.pgo.poses]
+        t0 = time.time()
+        closed = self.pgo.try_loop_closure(cand_fid, fid, T_i_j)
+        self.loop_times["pgo"] = time.time() - t0
+        if not closed:
+            return _reject("pgo_residual")
+        # apply the corrections: poses, map, pool
+        t0 = time.time()
+        deltas = self.pgo.pose_deltas(old_poses)
+        self.poses = [p.copy() for p in self.pgo.poses]
+        pad = np.tile(np.eye(4), (MAX_FRAMES - len(deltas), 1, 1))
+        dd = torch.as_tensor(np.concatenate([deltas, pad]).astype(np.float32),
+                             device=self.device)
+        self.m = npm.recreate_hash(npm.adjust_map(self.m, dd))
+        self.pool = _transform_pool(self.pool, dd)
+        self._sync()
+        self.loop_times["correct"] = time.time() - t0
+        self._sync_params_from_map()
+        # refresh the pooled keyframes' extrinsics from the corrected poses
+        if self.campool is not None:
+            for pc in self.campool.all_cams():
+                if pc.T_c_l is not None and pc.frame_id < len(self.poses):
+                    T_c_w = pc.T_c_l @ hp.se3_inv(self.poses[pc.frame_id])
+                    pc.set_cam(pc.cam._replace(T_c_w=torch.as_tensor(
+                        T_c_w, dtype=torch.float32, device=self.device)))
+        self.pgo.travel_dist_at_loop = self.travel[-1]
+        self.n_loops += 1
+        ev["decision"] = "applied"
+        self.T_rel_last = hp.se3_inv(self.poses[-2]) @ self.poses[-1] \
+            if len(self.poses) > 1 else np.eye(4)
+        return True
 
     # -- mapping internals ----------------------------------------------------
     @torch.no_grad()
@@ -604,3 +778,13 @@ class SlamSystem:
                 cfg.dynamic_sdf_ratio_thre * cfg.voxel_size_m,
                 k=cfg.query_nn_k, stencil_r=cfg.num_nei_cells,
                 search_alpha=cfg.search_alpha, min_nn=cfg.query_nn_k)
+
+
+@torch.no_grad()
+def _transform_pool(pool: rp.ReplayPool, deltas: torch.Tensor
+                    ) -> rp.ReplayPool:
+    """Re-pose the replay pool's samples by their frame's pose-graph
+    correction, in place."""
+    pool.points.copy_(npm.repose(npm.frame_deltas(deltas, pool.ts),
+                                 pool.points))
+    return pool

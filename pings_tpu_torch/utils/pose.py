@@ -1,6 +1,7 @@
 """Host-side float64 pose algebra (numpy).
 
-A copy of ``pings_tpu/utils/pose.py`` (:13-151): the device works in
+A copy of ``pings_tpu/utils/pose.py`` (:13-151, ``rotmat_to_quat`` :92,
+``quat_to_rotmat`` :116 and ``quat_xyzw_to_rotmat`` :125 among them): the device works in
 float32, poses are composed across frames here in float64, as the JAX
 package does. Twists are ``[rho (translation), phi (rotation)]``.
 """
@@ -87,6 +88,55 @@ def se3_inv(T: np.ndarray) -> np.ndarray:
     Ti[:3, :3] = T[:3, :3].T
     Ti[:3, 3] = -T[:3, :3].T @ T[:3, 3]
     return Ti
+
+
+def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
+    """(3,3) -> wxyz unit quaternion, w >= 0."""
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        q = np.array([0.25 * s, (R[2, 1] - R[1, 2]) / s,
+                      (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s])
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        q = np.array([(R[2, 1] - R[1, 2]) / s, 0.25 * s,
+                      (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s])
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        q = np.array([(R[0, 2] - R[2, 0]) / s, (R[0, 1] + R[1, 0]) / s,
+                      0.25 * s, (R[1, 2] + R[2, 1]) / s])
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        q = np.array([(R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s,
+                      (R[1, 2] + R[2, 1]) / s, 0.25 * s])
+    if q[0] < 0:
+        q = -q
+    return q / np.linalg.norm(q)
+
+
+def quat_to_rotmat(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def quat_xyzw_to_rotmat(q: np.ndarray) -> np.ndarray:
+    """Batched (N, 4) xyzw quaternions -> (N, 3, 3) rotation matrices
+    (the convention of dataset ground-truth files)."""
+    q = np.asarray(q, dtype=np.float64)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1),
+    ], axis=-2)
 
 
 def rotation_angle_deg(R: np.ndarray) -> float:

@@ -18,7 +18,7 @@ def _modules():
     out = []
     for d, _, files in os.walk(pkg):
         for f in files:
-            if f.endswith(".py"):
+            if f.endswith(".py") and f != "__main__.py":  # runs the cli
                 rel = os.path.relpath(os.path.join(d, f), ROOT)[:-3]
                 mod = rel.replace(os.sep, ".")
                 out.append(mod[:-len(".__init__")]
@@ -36,7 +36,9 @@ def test_port_imports_neither_jax_nor_pings_tpu():
                 "mapping.sdf_mapper", "mapping.sampler", "mapping.pool",
                 "mapping.campool", "models.field", "data.frame",
                 "data.synthetic", "odometry.tracker", "ops.scan_normals",
-                "utils.pose", "eval.traj", "slam.pipeline"):
+                "utils.pose", "eval.traj", "slam.pipeline",
+                "slam.loop_detector", "slam.pgo", "data.base",
+                "data.imageio", "data.kitti", "vis.control", "cli"):
         assert "pings_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             "before = set(sys.modules)\n"
@@ -52,22 +54,25 @@ def test_port_imports_neither_jax_nor_pings_tpu():
 
 
 def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
-    """chip_smoke.py names no module of jax or pings_tpu in an import
-    (read from its syntax tree: the script itself needs a card to run)."""
+    """chip_smoke.py and scripts/torch_make_kitti_data.py (which writes
+    chip_smoke.py's kitti data) name no module of jax or pings_tpu in an
+    import (read from their syntax trees: the smoke needs a card to run)."""
     import ast
 
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
-    names = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names += [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names.append(node.module or "")
-    assert any(n.startswith("pings_tpu_torch") for n in names)
-    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax",
-                                                   "optax", "pings_tpu")]
-    assert not bad, bad
+    for path in ("chip_smoke.py",
+                 os.path.join("scripts", "torch_make_kitti_data.py")):
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        names = []
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        assert any(n.startswith("pings_tpu_torch") for n in names), path
+        bad = [n for n in names if n.split(".")[0] in (
+            "jax", "jaxlib", "flax", "optax", "pings_tpu")]
+        assert not bad, (path, bad)
 
 
 def _no_card():
@@ -75,9 +80,9 @@ def _no_card():
         pytest.skip("a CUDA card is present: the default device is valid")
 
 
-def test_entry_points_default_to_cuda_and_raise_without_a_card():
+def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     _no_card()
-    from pings_tpu_torch import resolve_device
+    from pings_tpu_torch import cli, resolve_device
     from pings_tpu_torch.config import Config
     from pings_tpu_torch.inspect_map import load_system, main
     from pings_tpu_torch.models.decoder import decoders_from_jax
@@ -93,6 +98,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         load_system(RUN)
     with pytest.raises(RuntimeError, match="cuda"):
         main([RUN, "--render", "--frame", "0"])
+    # the command line: before any frame or run directory
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([os.path.join(ROOT, "configs", "run_synthetic.yaml"),
+                  "--output", str(tmp_path), "--quiet"])
+    assert not os.listdir(tmp_path)
     with pytest.raises(RuntimeError, match="cuda"):
         init_exposure()
     w = np.zeros((2, 2), np.float32)
@@ -164,7 +174,13 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     s = SlamSystem(cfg, device="cpu")
     assert s.tracker.device.type == "cpu" and s.m.capacity == 64
 
-    assert set(UNPORTED) == {"pgo_on", "dynamic_filter_on", "semantic_on",
+    # loop closure is ported: the kitti configuration builds as it is
+    kitti = Config.load(os.path.join(ROOT, "configs", "kitti_synth.yaml"),
+                        overrides=small)
+    assert kitti.pgo_on
+    s = SlamSystem(kitti, device="cpu")
+    assert s.pgo is not None and s.sc is not None
+    assert set(UNPORTED) == {"dynamic_filter_on", "semantic_on",
                              "mono_depth_on", "save_merged_pc",
                              "save_tsdf_mesh", "deskew"}
     for opt in UNPORTED:

@@ -90,7 +90,7 @@ def test_preprocess_frame(over):
 
 def test_preprocess_unported_options_raise():
     cfg = TConfig.load(overrides=dict(rand_downsample=True))
-    frame = SyntheticDataset("1:line")[0]
+    frame = SyntheticDataset(sequence="1:line")[0]
     with pytest.raises(NotImplementedError, match="random downsampling"):
         tfr.preprocess_frame(frame, cfg, np.eye(4), False, "cpu")
     with pytest.raises(NotImplementedError, match="deskewing"):
@@ -98,7 +98,7 @@ def test_preprocess_unported_options_raise():
 
 
 def test_colorize_scan(rng):
-    ds = SyntheticDataset("2:line")
+    ds = SyntheticDataset(sequence="2:line")
     f = ds[1]
     T = f["gt_pose"]
     pts_w = (f["points"] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
@@ -114,7 +114,7 @@ def test_colorize_scan(rng):
 
 def test_synthetic_dataset_equals_jax():
     jds = dataset_factory("synthetic", "", "3:circle", None)
-    tds = SyntheticDataset("3:circle")
+    tds = SyntheticDataset(sequence="3:circle")
     assert len(jds) == len(tds) and tds.cam_names == jds.cam_names
     for g, h in zip(jds.gt_poses(), tds.gt_poses()):
         np.testing.assert_array_equal(g, h)
@@ -128,7 +128,7 @@ def test_synthetic_dataset_equals_jax():
                     np.testing.assert_array_equal(y[c], x[c])
             else:
                 np.testing.assert_array_equal(y, x)
-    line = SyntheticDataset("2:line")
+    line = SyntheticDataset(sequence="2:line")
     np.testing.assert_array_equal(
         line.gt_poses()[1],
         dataset_factory("synthetic", "", "2:line", None).gt_poses()[1])

@@ -108,7 +108,7 @@ def test_save_load_roundtrip(runs, tmp_path):
 
 def test_gs_slam_port_only():
     _, tcfg = configs(gs_on=True, gs_iters=2, adaptive_iters=False)
-    ds = SyntheticDataset("3:line")
+    ds = SyntheticDataset(sequence="3:line")
     s = TSlam(tcfg, device="cpu")
     psnr = []
     for i in range(3):
