@@ -5,8 +5,9 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. build   compile every CUDA kernel of the port with nvcc (in parallel);
-           no kernel may need a stack frame or spill a register.
+1. build   compile every CUDA kernel of the port with nvcc (in parallel),
+           and the mesher's host C++ library with g++ beside them; no
+           kernel may need a stack frame or spill a register.
 2. kernel  hold each kernel (forward, backward and contribution blend,
            surfel and 3dgs modes) against its plain PyTorch version on the
            card: random tables at the kitti shape (600 tiles x 128 slots:
@@ -100,6 +101,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
            gs_iters=8)`` on ``"6:line"``: at least 4 online PSNRs, all
            finite, the last over 12 dB. The bars of (c) and (d) are the JAX
            package's own (tests/test_pipeline.py:34-51, 83-96).
+   Replica and the measurement of a run: (e) ``replica data``:
+           ``scripts/torch_make_replica_data.py`` writes the room's 60-pose
+           orbit (8 processes), which the ``replica`` loader reads back
+           along the committed run's trajectory. (f) ``replica eval``:
+           ``inspect_map --eval --eval-every 5 --recon-3d --mc-res 0.05
+           --sdf-slice 1.2 --export-points rgb`` on the committed replica
+           map over the 60 frames: the test split's mean PSNR, SSIM and
+           depth L1 within 0.1 dB, 0.003 and 2 mm of the JAX package's on
+           the same frames (``JAX_REPLICA_TEST``, from
+           tests/torch_replica_reference.py on a CPU); the mesh's vertex
+           count within 0.5% of the port's CPU mesh of the same map, made
+           here, and within 1% of the JAX package's, with a chamfer
+           distance to the CPU mesh under 0.02 x 0.05 m; per split the means
+           (with ``lpips_rand``), the ms per evaluated view, the grid-query
+           and marching seconds. (g) ``cli replica``:
+           ``configs/replica_synth.yaml --no-track --save-mesh`` with
+           ``save_tsdf_mesh`` and ``save_merged_pc`` on and ``mc_res_m``
+           0.05, frames 0-9 at full width through ``cli.main``, then
+           ``inspect_map --eval --eval-every 5 --recon-3d --mc-res 0.05`` on
+           its run directory: the outputs (three meshes and clouds) and
+           summary keys are written, the mean ``gs_psnr`` of frames 5-9 is
+           within 1.5 dB of the JAX package's committed run; ms per mapped
+           frame, peak memory, the files' sizes, the held-out numbers. (h)
+           ``kitti eval``: ``inspect_map --eval --recon-3d`` on (a)'s run
+           directory, printed and not held.
 5. times   per-view ms and per-stage ms of ``render()``; ms per GS
            iteration (host clock with a synchronize, fresh and cached
            table) and per-stage ms (CUDA events recorded by the step's
@@ -1273,6 +1299,37 @@ def slam_loop(torch, rb, n=70, verbose=False, **kw):
     return launches, system
 
 
+def recorded_system(torch, rb, base):
+    """A subclass of the cli's ``SlamSystem`` that times each frame with a
+    synchronize on both sides and counts its kernel launches; the last
+    instance is ``.last``."""
+
+    class Recorded(base):
+        last = None
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            Recorded.last = self
+            self.ms, self.launch_log, self.reports = [], [], []
+
+        def process_frame(self, frame):
+            before = (sum(rb.LAUNCHES.values()),
+                      sum(rb.BWD_LAUNCHES.values()),
+                      sum(rb.CONTRIB_LAUNCHES.values()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = super().process_frame(frame)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            n_ = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
+                  sum(rb.CONTRIB_LAUNCHES.values()))
+            self.launch_log.append([a - b for a, b in zip(n_, before)])
+            self.reports.append(rep)
+            return rep
+
+    return Recorded
+
+
 def cli_kitti(torch, rb):
     """The command line on kitti at full width with the pose graph on:
     write 12 frames with scripts/torch_make_kitti_data.py, run
@@ -1314,31 +1371,7 @@ def cli_kitti(torch, rb):
     log(f"cli kitti: wrote {n} frames in {t_write:.1f} s; the loader's "
         "frames equal kitti_sequence's (scans, images, poses, rig)")
 
-    class Recorded(cli.SlamSystem):
-        """The cli's system, timed per frame with a synchronize on both
-        sides and its kernel launches counted per frame."""
-        last = None
-
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            Recorded.last = self
-            self.ms, self.launch_log, self.reports = [], [], []
-
-        def process_frame(self, frame):
-            before = (sum(rb.LAUNCHES.values()),
-                      sum(rb.BWD_LAUNCHES.values()),
-                      sum(rb.CONTRIB_LAUNCHES.values()))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rep = super().process_frame(frame)
-            torch.cuda.synchronize()
-            self.ms.append((time.perf_counter() - t0) * 1e3)
-            n_ = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
-                  sum(rb.CONTRIB_LAUNCHES.values()))
-            self.launch_log.append([a - b for a, b in zip(n_, before)])
-            self.reports.append(rep)
-            return rep
-
+    Recorded = recorded_system(torch, rb, cli.SlamSystem)
     out = os.path.join(tmp, "runs")
     cli.SlamSystem = Recorded
     torch.cuda.empty_cache()
@@ -1429,6 +1462,302 @@ def cli_kitti(torch, rb):
     check_map_ops(torch, "cli kitti", system.m,
                   torch.as_tensor(deltas.astype(np.float32), device="cuda"),
                   n // 2)
+    return launches, run_dir, data
+
+
+# The JAX package's numbers on the committed replica map over the 60 PNG
+# frames that scripts/torch_make_replica_data.py writes (eval_heldout with
+# raster_precision "high", --eval-every 5: the test split's means; its
+# recon_map_mesh at MESH_RES): tests/torch_replica_reference.py on a CPU.
+JAX_REPLICA_TEST = {"psnr": 18.683555682500202, "ssim": 0.5624419003725052,
+                    "depth_l1": 0.24225698597729206}
+REPLICA_BARS = {"psnr": 0.1, "ssim": 0.003, "depth_l1": 0.002}
+# at the run's own mc_res_m (0.2 m) a grid point needs 6 neural points
+# within 13.2 cm and the room's mesh has 9 vertices: the card's mesh is
+# held at 5 cm, as a room is meshed
+MESH_RES = 0.05
+JAX_REPLICA_MESH_VERTS = 303978
+# the JAX package's committed run of configs/replica_synth.yaml (TPU,
+# JPEG frames, raster_precision "fast", jax.random streams): mean gs_psnr
+# of frames 5-9 in its metrics_table.csv, and the band the port's run on
+# PNG frames, in float32 and with torch's streams must fall in
+JAX_CLI_PSNR_5_9 = 23.91598
+CLI_PSNR_BAND = 1.5
+
+
+def replica_data():
+    """Write the 60-frame replica orbit with
+    scripts/torch_make_replica_data.py (8 processes) and check that the
+    loader reads it: 60 full-size frames along the committed run's
+    trajectory."""
+    import tempfile
+
+    from pings_tpu_torch.data.base import dataset_factory
+    from pings_tpu_torch.eval.traj import read_kitti_poses
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_make_replica_data import make_replica, replica_pose
+
+    tmp = tempfile.mkdtemp(prefix="pings_replica_")
+    t0 = time.perf_counter()
+    make_replica(tmp, 60, workers=min(8, os.cpu_count() or 1))
+    t_write = time.perf_counter() - t0
+    data = os.path.join(tmp, "replica_synth")
+    ds = dataset_factory("replica", data, "room_synth")
+    t0 = time.perf_counter()
+    f = ds[0]
+    t_read = time.perf_counter() - t0
+    saved = read_kitti_poses(os.path.join(REPLICA, "poses_kitti.txt"))
+    gt = ds.gt_poses()
+    err = max(float(np.abs(gt[i] - saved[i]).max()) for i in range(60))
+    log(f"replica data: wrote 60 frames in {t_write:.1f} s; a frame reads in "
+        f"{t_read * 1e3:.1f} ms ({len(f['points'])} points); the trajectory "
+        f"differs from the committed run's by {err:.2e} m at most")
+    if (len(ds) != 60 or f["img"]["cam"].shape != (680, 1200, 3)
+            or f["depth"]["cam"].shape != (680, 1200) or err > 1e-6
+            or not np.allclose(gt[7], replica_pose(7, 60), atol=1e-12)):
+        raise AssertionError(f"replica data: {len(ds)} frames, image "
+                             f"{f['img']['cam'].shape}, pose error {err}")
+    return data
+
+
+def inspect_run(torch, rb, run_dir, argv):
+    """``inspect_map.main(run_dir + argv)`` on cuda with the launch counts
+    zeroed just before and read just after; returns (report, launches,
+    seconds of the evaluation, (render ms, metrics ms) per view, the mesher
+    of the reconstruction or None, wall seconds). The render and metrics
+    times have a synchronize on both sides (image_metrics reads its
+    numbers back itself)."""
+    from pings_tpu_torch import inspect_map as im
+
+    meshers, evals, renders, metrics = [], [], [], []
+    orig = (im.Mesher, im.eval_heldout, im.render, im.image_metrics)
+
+    class Kept(orig[0]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            meshers.append(self)
+
+    def timed_eval(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig[1](*a, **k)
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter() - t0)
+        return r
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig[2](*a, **k)
+        torch.cuda.synchronize()
+        renders.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    def timed_metrics(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig[3](*a, **k)
+        metrics.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    im.Mesher, im.eval_heldout, im.render, im.image_metrics = (
+        Kept, timed_eval, timed_render, timed_metrics)
+    rb.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rep = im.main([run_dir, *argv, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        im.Mesher, im.eval_heldout, im.render, im.image_metrics = orig
+    launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
+                    rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    mesher = meshers[-1] if "--recon-3d" in argv else None
+    return (rep, launches, (evals[0] if evals else 0.0), (renders, metrics),
+            mesher, wall)
+
+
+def split_means(rep):
+    return "; ".join(
+        f"{sp}: " + ", ".join(f"{k} {rep[f'{sp}_{k}']:.4f}" for k in (
+            "psnr", "ssim", "lpips_rand", "depth_l1") if f"{sp}_{k}" in rep)
+        for sp in ("train", "test"))
+
+
+def replica_eval(torch, rb, data):
+    """``inspect_map --eval --eval-every 5 --recon-3d --sdf-slice 1.2
+    --export-points rgb`` on the committed replica map over the 60 written
+    frames, held against the JAX package's numbers; the card's mesh held
+    against the port's CPU mesh of the same map made here."""
+    import tempfile
+
+    from pings_tpu_torch.data.pointcloud_io import read_ply
+    from pings_tpu_torch.eval.mesh import eval_pair
+    from pings_tpu_torch.inspect_map import load_system
+    from pings_tpu_torch.slam.mesher import Mesher
+
+    out = tempfile.mkdtemp(prefix="pings_replica_eval_")
+    rep, launches, t_eval, (renders, mets), mesher, wall = inspect_run(
+        torch, rb, REPLICA, ["--eval", "--eval-every", "5", "--recon-3d",
+                             "--mc-res", str(MESH_RES), "--sdf-slice", "1.2",
+                             "--export-points", "rgb", "--data-path", data,
+                             "--out", out])
+    with open(os.path.join(out, "gs_eval.csv")) as f:
+        n_views = sum(1 for _ in f) - 1
+    card_v = read_ply(os.path.join(out, "mesh.ply"))["xyz"]
+    cfg_c, sys_c = load_system(REPLICA, device="cpu")
+    me_c = Mesher(cfg_c, "cpu")
+    t0 = time.perf_counter()
+    cpu_v, _, _ = me_c.recon_map_mesh(sys_c.m, sys_c.decoders, res=MESH_RES)
+    t_cpu = time.perf_counter() - t0
+    pair = eval_pair(card_v, cpu_v, threshold=MESH_RES)
+    log(f"replica eval: {n_views} views in {t_eval:.2f} s, "
+        f"{t_eval / max(n_views, 1) * 1e3:.1f} ms per evaluated view "
+        f"(render {statistics.median(renders[1:]):.2f} ms median, first "
+        f"{renders[0]:.1f}; metrics with LPIPS {statistics.median(mets):.2f} "
+        f"ms median); {split_means(rep)}; JAX test split "
+        + ", ".join(f"{k} {v:.4f}" for k, v in JAX_REPLICA_TEST.items())
+        + f"; mesh at {MESH_RES} m: {rep['mesh_verts']} vertices on the card "
+        f"(grid query {mesher.query_s:.3f} s, marching {mesher.march_s:.3f} "
+        f"s), {len(cpu_v)} on the CPU ({t_cpu:.1f} s: grid query "
+        f"{me_c.query_s:.2f} s, marching {me_c.march_s:.2f} s), JAX "
+        f"{JAX_REPLICA_MESH_VERTS}; chamfer card-CPU "
+        f"{pair['chamfer_l1_m']:.2e} m; sdf slice {rep['sdf_slice']}; "
+        f"exported {rep['exported_points']} points; {wall:.1f} s in all; "
+        f"launches {launches}; card {smi('name,power.limit')}")
+    for f in ("gs_eval.csv", "mesh.ply", "sdf_slice.npy",
+              "neural_points_rgb.ply"):
+        if not os.path.exists(os.path.join(out, f)):
+            raise AssertionError(f"replica eval: {f} not written")
+    bad = {k: rep[f"test_{k}"] for k, v in JAX_REPLICA_TEST.items()
+           if not abs(rep[f"test_{k}"] - v) <= REPLICA_BARS[k]}
+    if bad or n_views != 60 or "test_lpips_rand" not in rep:
+        raise AssertionError(f"replica eval: test split {bad} against JAX "
+                             f"{JAX_REPLICA_TEST} (bars {REPLICA_BARS}); "
+                             f"{n_views} views; report {sorted(rep)}")
+    nv = rep["mesh_verts"]
+    if not (abs(nv - len(cpu_v)) <= 0.005 * len(cpu_v)
+            and abs(nv - JAX_REPLICA_MESH_VERTS)
+            <= 0.01 * JAX_REPLICA_MESH_VERTS
+            and pair["chamfer_l1_m"] < 0.02 * MESH_RES):
+        raise AssertionError(f"replica eval: mesh {nv} vertices, CPU "
+                             f"{len(cpu_v)}, JAX {JAX_REPLICA_MESH_VERTS}, "
+                             f"chamfer {pair}")
+    if launches["surfel"][0] < n_views:
+        raise AssertionError(f"replica eval: launches {launches}")
+    return launches
+
+
+def cli_replica(torch, rb, data, n=10):
+    """``python -m pings_tpu_torch configs/replica_synth.yaml --no-track
+    --save-mesh`` with save_tsdf_mesh and save_merged_pc on and the mesh at
+    MESH_RES, over frames 0-(n-1) at full width, then ``inspect_map --eval
+    --eval-every 5 --recon-3d --mc-res MESH_RES`` on its run directory."""
+    import csv
+    import tempfile
+
+    import yaml
+
+    from pings_tpu_torch import cli
+
+    tmp = tempfile.mkdtemp(prefix="pings_cli_replica_")
+    with open(os.path.join(ROOT, "configs", "replica_synth.yaml")) as f:
+        raw = yaml.safe_load(f)
+    # the SDF's mesh at 5 cm, as replica eval's (the file's 0.2 m gives a
+    # room no trusted cube)
+    raw["eval"].update(save_tsdf_mesh=True, save_merged_pc=True,
+                       mc_res_m=MESH_RES)
+    cfg_file = os.path.join(tmp, "replica_synth.yaml")
+    with open(cfg_file, "w") as f:
+        yaml.safe_dump(raw, f)
+    Recorded = recorded_system(torch, rb, cli.SlamSystem)
+    out = os.path.join(tmp, "runs")
+    cli.SlamSystem = Recorded
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rb.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        cli.main([cfg_file, "--no-track", "--save-mesh", "--data-path", data,
+                  "--range", "0", str(n), "1", "--output", out, "--quiet",
+                  "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        cli.SlamSystem = Recorded.__mro__[1]
+    launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
+                    rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    system = Recorded.last
+    for r, m_, l_ in zip(system.reports, system.ms, system.launch_log):
+        mt = r.metrics
+        log(f"cli replica frame {r.frame_id}: {m_:.1f} ms, stages "
+            + ", ".join(f"{k}={v * 1e3:.1f}" for k, v in r.timings.items())
+            + f" ms; map {r.n_points} points, gs_iters "
+            f"{mt.get('gs_iters', 0)}, gs_psnr "
+            f"{mt.get('gs_psnr', float('nan')):.3f}; launches "
+            f"fwd/bwd/contrib {l_}")
+    run_dir = [os.path.join(out, d) for d in os.listdir(out)][0]
+    outputs = ("mesh.ply", "tsdf_mesh.ply", "merged_point_cloud.ply")
+    missing = [f for f in outputs + ("metrics_table.csv", "summary.json",
+                                     os.path.join("model", "pin_map.npz"))
+               if not os.path.exists(os.path.join(run_dir, f))]
+    if missing:
+        raise AssertionError(f"cli replica: run directory lacks {missing}")
+    sizes = {f: os.path.getsize(os.path.join(run_dir, f)) for f in outputs}
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(run_dir, "metrics_table.csv")) as f:
+        rows = {int(r["frame"]): r for r in csv.DictReader(f)}
+    psnr59 = float(np.mean([float(rows[i]["gs_psnr"]) for i in range(5, 10)]))
+    rep, l_eval, t_eval, _, mesher, _ = inspect_run(
+        torch, rb, run_dir, ["--eval", "--eval-every", "5", "--recon-3d",
+                             "--mc-res", str(MESH_RES), "--data-path", data])
+    ms = system.ms
+    log(f"cli replica: {n} frames in {wall:.1f} s through cli.main; median "
+        f"ms per mapped frame (frames 1-{n - 1}) "
+        f"{statistics.median(ms[1:]):.1f}; frame 0 {ms[0]:.1f} ms; peak "
+        f"device memory {mem:.3f} GiB; files {sizes} bytes; summary "
+        + ", ".join(f"{k} {summary.get(k)}" for k in (
+            "merged_pc_points", "tsdf_mesh_verts", "mesh_verts", "gs_psnr"))
+        + f"; mean gs_psnr frames 5-9 {psnr59:.3f} dB (JAX committed run "
+        f"{JAX_CLI_PSNR_5_9:.3f}, band {CLI_PSNR_BAND}); launches "
+        f"{launches}; eval of the run: {split_means(rep)}, "
+        f"{t_eval / max(n, 1) * 1e3:.1f} ms per evaluated view, mesh "
+        f"{rep['mesh_verts']} vertices (grid query {mesher.query_s:.3f} s, "
+        f"marching {mesher.march_s:.3f} s), launches {l_eval}; card "
+        f"{smi('name,power.limit')}")
+    if not (summary.get("merged_pc_points", 0) > 0
+            and summary.get("tsdf_mesh_verts", 0) > 0
+            and summary.get("mesh_verts", 0) > 0 and summary["frames"] == n):
+        raise AssertionError(f"cli replica: summary {summary}")
+    if not abs(psnr59 - JAX_CLI_PSNR_5_9) <= CLI_PSNR_BAND:
+        raise AssertionError(f"cli replica: mean gs_psnr of frames 5-9 "
+                             f"{psnr59} against {JAX_CLI_PSNR_5_9}")
+    if not (np.isfinite(rep.get("test_psnr", np.nan))
+            and rep["n_poses"] == n):
+        raise AssertionError(f"cli replica: evaluation {rep}")
+    fwd, bwd, contrib = launches["surfel"]
+    if not (fwd and bwd and contrib and l_eval["surfel"][0] >= n):
+        raise AssertionError(f"cli replica: launches {launches}, {l_eval}")
+    return {m: tuple(a + b for a, b in zip(launches[m], l_eval[m]))
+            for m in rb.MODES}
+
+
+def kitti_eval(torch, rb, run_dir, data):
+    """``inspect_map --eval --recon-3d`` on the run directory of ``cli
+    kitti`` (printed, not held)."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="pings_kitti_eval_")
+    rep, launches, t_eval, (renders, mets), mesher, wall = inspect_run(
+        torch, rb, run_dir, ["--eval", "--recon-3d", "--data-path", data,
+                             "--out", out])
+    log(f"kitti eval: {split_means(rep)}; {rep['n_poses']} views, "
+        f"{t_eval / max(rep['n_poses'], 1) * 1e3:.1f} ms per evaluated "
+        f"view (render {statistics.median(renders):.2f} ms median, metrics "
+        f"with LPIPS {statistics.median(mets):.2f}); mesh "
+        f"{rep['mesh_verts']} vertices (grid query {mesher.query_s:.3f} s, "
+        f"marching {mesher.march_s:.3f} s); {wall:.1f} s in all; launches "
+        f"{launches}")
     return launches
 
 
@@ -1492,9 +1821,18 @@ def main():
     from pings_tpu_torch.ops import raster_blend as rb
 
     # 1. build -----------------------------------------------------------
+    # the host C++ library of the mesher (g++) beside the kernels (nvcc)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pings_tpu_torch import native
+
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"build {sorted(logs)}: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(1) as ex:
+        native_job = ex.submit(native.build)
+        logs = _build.build_all()
+        native_lib = native_job.result()
+    log(f"build {sorted(logs)} and {native_lib.name}: "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
@@ -1624,14 +1962,21 @@ def main():
     # SLAM from frame 0 through process_frame: the command line on kitti
     # with the pose graph on, loop closure on a small circuit, the small
     # LiDAR-only and GS-SLAM runs
-    l_k = cli_kitti(torch, rb)
+    l_k, kitti_run, kitti_data = cli_kitti(torch, rb)
     l_l, _ = slam_loop(torch, rb)
     l_s = slam_small(torch, rb)
+    # the replica configuration: its data, the evaluation and mesh of the
+    # committed map, the command line and the evaluation of its run; the
+    # evaluation of the kitti run
+    replica = replica_data()
+    l_re = replica_eval(torch, rb, replica)
+    l_cr = cli_replica(torch, rb, replica)
+    l_ke = kitti_eval(torch, rb, kitti_run, kitti_data)
     for kind, i in (("fwd", 0), ("bwd", 1), ("contrib", 2)):
         for mode, c in (("surfel", c_s), ("3dgs", c_3)):
             launches[kind, mode] = (launches.get((kind, mode), 0) + c[i]
-                                    + l_k[mode][i] + l_l[mode][i]
-                                    + l_s[mode][i])
+                                    + sum(l_[mode][i] for l_ in (
+                                        l_k, l_l, l_s, l_re, l_cr, l_ke)))
 
     # 5. stages, real tables, kernel times --------------------------------
     log("SM clock before the kernel rounds (now, max): "

@@ -13,10 +13,14 @@ through ``SlamSystem.process_frame`` and writes the JAX package's run
 directory: ``config_all.yaml``, ``run_info.json``, ``poses_kitti.txt``,
 ``odom_poses_kitti.txt``, ``pose_eval.csv``, ``time_table.csv``,
 ``metrics_table.csv``, ``summary.json``, ``traj_plot.png`` (where
-matplotlib is installed) and ``model/pin_map.npz`` when ``save_map``.
+matplotlib is installed), ``model/pin_map.npz`` when ``save_map``,
+``merged_point_cloud.ply`` when ``save_merged_pc``, ``tsdf_mesh.ply`` (the
+keyframes' depth maps fused into a TSDF) when ``save_tsdf_mesh`` and
+``mesh.ply`` (the neural SDF's mesh) with ``--save-mesh`` or
+``save_mesh`` (:160-189).
 
 Not ported yet, and refused: ``--vis-every`` (and a ``vis_every`` set in
-``control.json``) and ``--save-mesh`` / ``save_mesh``.
+``control.json``).
 """
 
 from __future__ import annotations
@@ -34,9 +38,12 @@ import numpy as np
 
 from pings_tpu_torch.config import Config
 from pings_tpu_torch.data.base import dataset_factory
+from pings_tpu_torch.data.pointcloud_io import write_ply_points
 from pings_tpu_torch.eval.traj import (
     absolute_error, plot_trajectories, relative_error, write_kitti_poses)
+from pings_tpu_torch.slam.mesher import Mesher, write_ply
 from pings_tpu_torch.slam.pipeline import SlamSystem
+from pings_tpu_torch.slam.tsdf import fuse_run
 from pings_tpu_torch.vis.control import ControlLoop
 
 
@@ -49,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="YAML config file")
     p.add_argument("--data-path", default="", help="dataset root")
     p.add_argument("--loader", default=None,
-                   help="dataset loader name (kitti, kitti_mot, synthetic)")
+                   help="dataset loader name (kitti, kitti_mot, synthetic, "
+                        "replica, tum, bonn, azure, neuralrgbd)")
     p.add_argument("--seq", default=None, help="sequence name")
     p.add_argument("--range", nargs=3, type=int, default=None,
                    metavar=("BEGIN", "END", "STEP"), help="frame range")
@@ -60,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-gs", action="store_true",
                    help="disable gaussian-splatting mapping")
     p.add_argument("--save-mesh", action="store_true",
-                   help="not yet ported: raises")
+                   help="write the SDF's mesh (mesh.ply) at the end")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--vis-every", type=int, default=0, metavar="N",
@@ -99,9 +107,6 @@ def run(args) -> dict:
         overrides["silence"] = True
     cfg = Config.load(args.config, overrides)
     _unported_vis(args.vis_every)
-    if args.save_mesh or cfg.save_mesh:
-        raise NotImplementedError("--save-mesh / save_mesh (the mesher) is "
-                                  "not yet ported")
 
     ds = dataset_factory(cfg.data_loader_name, cfg.pc_path,
                          cfg.data_loader_seq, cfg)
@@ -161,6 +166,23 @@ def run(args) -> dict:
     results = write_results(run_dir, cfg, system, ds, reports, gt, wall)
     if cfg.save_map:
         system.save(os.path.join(run_dir, "model", "pin_map.npz"))
+    if cfg.save_merged_pc:
+        pc = system.merged_point_cloud()
+        write_ply_points(os.path.join(run_dir, "merged_point_cloud.ply"),
+                         pc[:, :3], pc[:, 3:6])
+        results["merged_pc_points"] = len(pc)
+    if cfg.save_tsdf_mesh and system.tsdf_frames:
+        depths, Ks, Tcs, rgbs = zip(*system.tsdf_frames)
+        vol = fuse_run(list(depths), list(Ks), list(Tcs), list(rgbs),
+                       voxel=cfg.tsdf_fusion_voxel_size)
+        v, t, c = vol.extract_mesh()
+        write_ply(os.path.join(run_dir, "tsdf_mesh.ply"), v, t, c)
+        results["tsdf_mesh_verts"] = len(v)
+    if args.save_mesh or cfg.save_mesh:
+        v, t, c = Mesher(cfg, system.device).recon_map_mesh(
+            system.m, system.decoders)
+        write_ply(os.path.join(run_dir, "mesh.ply"), v, t, c)
+        results["mesh_verts"] = len(v)
     with open(os.path.join(run_dir, "summary.json"), "w") as f:
         json.dump(results, f, indent=2, default=float)
     if not cfg.silence:

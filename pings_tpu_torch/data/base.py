@@ -19,7 +19,8 @@ per-frame dicts, the contract ``SlamSystem.process_frame`` takes:
       "sem":        (N,) int32 training class ids (optional),
     }
 
-The port has the ``kitti``, ``kitti_mot`` and ``synthetic`` loaders. A
+The port has the ``kitti``, ``kitti_mot``, ``synthetic`` and RGB-D
+(``replica``, ``tum``, ``bonn``, ``azure``, ``neuralrgbd``) loaders. A
 name that only the JAX package registers raises ``NotImplementedError``.
 """
 
@@ -31,10 +32,10 @@ _REGISTRY: Dict[str, Callable] = {}
 
 # loaders of pings_tpu/data/ that the port does not have yet
 UNPORTED_LOADERS = (
-    "agri_slam", "apollo", "azure", "bonn", "cka", "generic", "helipr",
-    "ipb_car", "kitti360", "mcap", "mcap_ipb_car", "mulran", "ncd", "nclt",
-    "neuralrgbd", "nuscenes", "ouster", "oxford", "oxford_raw", "r3live",
-    "replica", "rosbag", "tum", "vbr", "waymo")
+    "agri_slam", "apollo", "cka", "generic", "helipr", "ipb_car",
+    "kitti360", "mcap", "mcap_ipb_car", "mulran", "ncd", "nclt",
+    "nuscenes", "ouster", "oxford", "oxford_raw", "r3live", "rosbag", "vbr",
+    "waymo")
 
 
 def register_loader(name: str):
@@ -85,6 +86,7 @@ def dataset_factory(name: str, data_path: str, sequence: str = "",
 def _import_loader_modules():
     """Import the loader modules, which register themselves."""
     import pings_tpu_torch.data.kitti  # noqa: F401
+    import pings_tpu_torch.data.rgbd  # noqa: F401
     import pings_tpu_torch.data.synthetic  # noqa: F401
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``pings_tpu/models/field.py`` for the training path:
 ``sdf_from_query`` (:25), ``color_from_query`` (:33), ``sdf_at`` (:38),
-``check_invalid_gs`` (:106-136), ``sdf_grad_numerical_nn`` (:139-156) and
+``color_at`` (:59), ``check_invalid_gs`` (:106-136),
+``sdf_grad_numerical_nn`` (:139-156) and
 ``sdf_grad_analytical`` (:171-192). Decoding is per neighbour (feature +
 relative offset); the K predictions are blended with the query's IDW
 weights. The dynamic-point filter and the semantic head are not ported
@@ -45,6 +46,16 @@ def sdf_at(m: npm.NeuralPointMap, decoders, pts: torch.Tensor,
                           search_alpha=search_alpha,
                           use_local_mask=use_local_mask)
     return sdf_from_query(decoders, q, sigma_scale)
+
+
+def color_at(m: npm.NeuralPointMap, decoders, pts: torch.Tensor,
+             k: int = 6, stencil_r: int = 1, search_alpha: float = 0.2,
+             use_local_mask: bool = False):
+    """Colour at points: (rgb (N, 3), valid (N,))."""
+    q = npm.query_feature(m, pts, k=k, stencil_r=stencil_r,
+                          search_alpha=search_alpha,
+                          use_local_mask=use_local_mask)
+    return color_from_query(decoders, q)
 
 
 @torch.no_grad()

@@ -13,8 +13,12 @@ GS+SDF iterations (``_train_gs``, :652-840). ``save`` and ``load``
 (:925-954) write and read the JAX package's checkpoint layout;
 ``render_cam`` (:901-922) renders the map's current local window.
 
+With ``save_merged_pc`` the map update keeps each scan downsampled at
+twice ``vox_down_m`` for ``merged_point_cloud`` (:303-308, :566-570); with
+``save_tsdf_mesh`` it keeps every keyframe's depth map, intrinsics, pose
+and image in ``tsdf_frames`` (:541-548) for the command line's TSDF mesh.
 Not ported yet, and refused at construction: the dynamic filter,
-semantics, mono depth, the merged cloud, the TSDF mesh and deskewing.
+semantics, mono depth and deskewing.
 
 State-synchronization model: the trainable leaves the SDF and GS
 optimizers hold are the map's feature tensors, the decoders' weights and
@@ -49,6 +53,7 @@ from pings_tpu_torch.models.spawn import (
     LocalPointData, SpawnedGaussians, gather_local_data, local_indices,
     spawn_gaussians, spawn_kwargs_from_cfg)
 from pings_tpu_torch.odometry.tracker import Tracker
+from pings_tpu_torch.ops import transforms as tf
 from pings_tpu_torch.ops.scan_normals import scan_incidence_cos
 from pings_tpu_torch.slam.loop_detector import (
     ScanContextManager, detect_local_loop)
@@ -57,8 +62,7 @@ from pings_tpu_torch.utils import pose as hp
 
 MAX_FRAMES = 100000
 # options whose code paths are not ported yet
-UNPORTED = ("dynamic_filter_on", "semantic_on", "mono_depth_on",
-            "save_merged_pc", "save_tsdf_mesh", "deskew")
+UNPORTED = ("dynamic_filter_on", "semantic_on", "mono_depth_on", "deskew")
 
 
 class FrameReport:
@@ -107,6 +111,11 @@ class SlamSystem:
         # slots)`` and ``sdf_batches(iters, pool) -> [pool_batch draws]``
         # (a parity test hands in the JAX package's numbers)
         self.draws = None
+        # the merged world-frame cloud, one (M, 6) xyz+rgb array per frame
+        # (save_merged_pc), and (depth, K, T_c_w, rgb) per keyframe for the
+        # TSDF fusion at the end of a run (save_tsdf_mesh)
+        self._merged_pc: List[np.ndarray] = []
+        self.tsdf_frames: List[tuple] = []
 
         self.poses: List[np.ndarray] = []     # post-PGO odom poses (f64)
         self.odom_only_poses: List[np.ndarray] = []
@@ -308,6 +317,13 @@ class SlamSystem:
         rep.timings["training"] = time.time() - t4
         return rep
 
+    def merged_point_cloud(self) -> np.ndarray:
+        """(M, 6) xyz+rgb merged downsampled world-frame cloud
+        (requires cfg.save_merged_pc)."""
+        if not self._merged_pc:
+            return np.zeros((0, 6), np.float32)
+        return np.concatenate(self._merged_pc)
+
     # -- loop closure internals ---------------------------------------------
     @torch.no_grad()
     def _context_feats(self, src_np: np.ndarray) -> np.ndarray:
@@ -462,6 +478,14 @@ class SlamSystem:
         msk = torch.as_tensor(pre.mask, device=dev)
         cols = torch.as_tensor(pre.colors, dtype=torch.float32, device=dev)
         valid_color = torch.zeros(len(pts_w), dtype=torch.bool, device=dev)
+        if cfg.save_tsdf_mesh and fid % max(cfg.gs_keyframe_interval, 1) == 0:
+            for cd in pre.cams.values():
+                if cd.get("depth") is not None:
+                    self.tsdf_frames.append((
+                        np.asarray(cd["depth"], np.float32),
+                        np.asarray(cd["K"], np.float64),
+                        np.asarray(cd["T_c_l"], np.float64) @ hp.se3_inv(T),
+                        np.asarray(cd["img"])))
         for cd in pre.cams.values():
             # camera shutter offset: the body pose at the camera's time
             T_cam_t = T
@@ -473,6 +497,11 @@ class SlamSystem:
             new = v & ~valid_color
             cols = torch.where(new[:, None], c, cols)
             valid_color |= new
+        if cfg.save_merged_pc:
+            # eager in the JAX package too: the true division by the voxel
+            keep = tf.voxel_down_sample_mask(pts, msk, cfg.vox_down_m * 2.0)
+            self._merged_pc.append(torch.cat([pts[keep], cols[keep]], dim=1)
+                                   .cpu().numpy().astype(np.float32))
 
         thre = cfg.local_map_travel_dist_ratio * cfg.local_map_radius
         origin = torch.as_tensor(T[:3, 3].astype(np.float32), device=dev)

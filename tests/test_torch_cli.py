@@ -117,8 +117,11 @@ def test_kitti_loader_matches_jax(tmp_path):
     # the vertical-angle correction, as the JAX loader applies it
     jd.apply_correction = td.apply_correction = True
     np.testing.assert_array_equal(td[1]["points"], jd[1]["points"])
-    assert set(available_loaders()) == {"kitti", "kitti_mot", "synthetic"}
-    for name in ("replica", "ouster", "rosbag", "kitti360"):
+    assert set(available_loaders()) == {
+        "kitti", "kitti_mot", "synthetic", "replica", "tum", "bonn", "azure",
+        "neuralrgbd"}
+    assert "replica" not in UNPORTED_LOADERS
+    for name in ("ouster", "rosbag", "kitti360"):
         assert name in UNPORTED_LOADERS
         with pytest.raises(NotImplementedError, match=name):
             tfactory(name, data)

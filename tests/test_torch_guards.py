@@ -38,15 +38,25 @@ def test_port_imports_neither_jax_nor_pings_tpu():
                 "data.synthetic", "odometry.tracker", "ops.scan_normals",
                 "utils.pose", "eval.traj", "slam.pipeline",
                 "slam.loop_detector", "slam.pgo", "data.base",
-                "data.imageio", "data.kitti", "vis.control", "cli"):
+                "data.imageio", "data.kitti", "vis.control", "cli",
+                "data.rgbd", "data.pointcloud_io", "native", "slam.mesher",
+                "slam.tsdf", "eval.image", "eval.lpips", "eval.mesh",
+                "inspect_map"):
         assert "pings_tpu_torch." + new in mods
+    # the native library loaded is the port's build, never the JAX
+    # package's pings_tpu/native/libpings.so
     code = ("import importlib, sys\n"
             "before = set(sys.modules)\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'pings_tpu' "
             "or m.startswith('pings_tpu.'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "from pings_tpu_torch.native import get_lib\n"
+            "get_lib()\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'libpings_native-' in maps\n"
+            "assert 'pings_tpu/native/libpings' not in maps\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -54,13 +64,15 @@ def test_port_imports_neither_jax_nor_pings_tpu():
 
 
 def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
-    """chip_smoke.py and scripts/torch_make_kitti_data.py (which writes
-    chip_smoke.py's kitti data) name no module of jax or pings_tpu in an
-    import (read from their syntax trees: the smoke needs a card to run)."""
+    """chip_smoke.py and scripts/torch_make_{kitti,replica}_data.py (which
+    write chip_smoke.py's kitti and replica data) name no module of jax or
+    pings_tpu in an import (read from their syntax trees: the smoke needs
+    a card to run)."""
     import ast
 
     for path in ("chip_smoke.py",
-                 os.path.join("scripts", "torch_make_kitti_data.py")):
+                 os.path.join("scripts", "torch_make_kitti_data.py"),
+                 os.path.join("scripts", "torch_make_replica_data.py")):
         with open(os.path.join(ROOT, path)) as f:
             tree = ast.parse(f.read())
         names = []
@@ -110,6 +122,18 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         decoders_from_jax({"dec['sdf']['w'][0]": w})
     with pytest.raises(RuntimeError, match="cuda"):
         map_from_jax({}, 0.3, 10)
+    # the measurement of a run: the mesher's grid query, the image metrics
+    from pings_tpu_torch.eval.image import image_metrics
+    from pings_tpu_torch.eval.lpips import lpips
+    from pings_tpu_torch.slam.mesher import Mesher
+
+    img = np.zeros((16, 16, 3), np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Mesher(Config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        image_metrics(img, img)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lpips(img, img)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -181,8 +205,11 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     s = SlamSystem(kitti, device="cpu")
     assert s.pgo is not None and s.sc is not None
     assert set(UNPORTED) == {"dynamic_filter_on", "semantic_on",
-                             "mono_depth_on", "save_merged_pc",
-                             "save_tsdf_mesh", "deskew"}
+                             "mono_depth_on", "deskew"}
+    # the merged cloud and the TSDF keyframes are ported
+    s = SlamSystem(Config.load(overrides=dict(
+        small, save_merged_pc=True, save_tsdf_mesh=True)), device="cpu")
+    assert s.merged_point_cloud().shape == (0, 6) and s.tsdf_frames == []
     for opt in UNPORTED:
         with pytest.raises(NotImplementedError, match=opt):
             SlamSystem(Config.load(overrides=dict(small, **{opt: True})),
@@ -263,13 +290,34 @@ def test_inspect_map_renders_pngs_on_cpu(tmp_path):
     assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
-def test_inspect_map_unported_flags_exit():
+def test_inspect_map_unported_flags_exit(tmp_path):
+    """The four flags that were refused before they were ported run with
+    ``--device cpu`` (on a dataset directory with no frames, so that
+    ``--eval`` has no view to render), and ask for the card by default."""
     from pings_tpu_torch.inspect_map import main
 
-    for flag in (["--eval"], ["--recon-3d"], ["--sdf-slice", "1.0"],
-                 ["--export-points", "rgb"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            main([RUN, "--device", "cpu", *flag])
+    empty = tmp_path / "no_frames"
+    empty.mkdir()
+    flags = {"eval": ["--eval", "--data-path", str(empty)],
+             "mesh_verts": ["--recon-3d"],
+             "sdf_slice": ["--sdf-slice", "1.0"],
+             "exported_points": ["--export-points", "rgb"]}
+    # one intra-op thread: this file runs early in the suite, beside
+    # wall-clock tests of other processes
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for key, flag in flags.items():
+            rep = main([RUN, "--device", "cpu", "--out", str(tmp_path / key),
+                        *flag])
+            assert key == "eval" or key in rep, (key, rep)
+    finally:
+        torch.set_num_threads(n_threads)
+    assert (tmp_path / "exported_points" / "neural_points_rgb.ply").exists()
+    if not torch.cuda.is_available():
+        for flag in flags.values():
+            with pytest.raises(RuntimeError, match="cuda"):
+                main([RUN, "--out", str(tmp_path / "cuda"), *flag])
 
 
 def test_read_kitti_poses_matches(tmp_path):
