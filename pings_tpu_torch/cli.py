@@ -56,8 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="YAML config file")
     p.add_argument("--data-path", default="", help="dataset root")
     p.add_argument("--loader", default=None,
-                   help="dataset loader name (kitti, kitti_mot, synthetic, "
-                        "replica, tum, bonn, azure, neuralrgbd)")
+                   help="dataset loader name (data.base.available_loaders())")
     p.add_argument("--seq", default=None, help="sequence name")
     p.add_argument("--range", nargs=3, type=int, default=None,
                    metavar=("BEGIN", "END", "STEP"), help="frame range")
@@ -114,8 +113,8 @@ def run(args) -> dict:
     if end < 0:
         end = len(ds)
     end = min(end, len(ds))
-    # the system first: an unported option or a missing card raises before
-    # the run directory is made
+    # the system first: a missing card raises before the run directory is
+    # made
     system = SlamSystem(cfg, device=args.device)
 
     stamp = datetime.now().strftime("%Y%m%d_%H%M%S")

@@ -19,23 +19,17 @@ per-frame dicts, the contract ``SlamSystem.process_frame`` takes:
       "sem":        (N,) int32 training class ids (optional),
     }
 
-The port has the ``kitti``, ``kitti_mot``, ``synthetic`` and RGB-D
-(``replica``, ``tum``, ``bonn``, ``azure``, ``neuralrgbd``) loaders. A
-name that only the JAX package registers raises ``NotImplementedError``.
+The port registers every loader name the JAX package registers: the
+LiDAR folders, the streaming sources (ROS1 bags, MCAP, Ouster pcap,
+nuScenes), KITTI, the RGB-D datasets and the synthetic worlds.
 """
 
 from __future__ import annotations
 
+import abc
 from typing import Callable, Dict
 
 _REGISTRY: Dict[str, Callable] = {}
-
-# loaders of pings_tpu/data/ that the port does not have yet
-UNPORTED_LOADERS = (
-    "agri_slam", "apollo", "cka", "generic", "helipr", "ipb_car",
-    "kitti360", "mcap", "mcap_ipb_car", "mulran", "ncd", "nclt",
-    "nuscenes", "ouster", "oxford", "oxford_raw", "r3live", "rosbag", "vbr",
-    "waymo")
 
 
 def register_loader(name: str):
@@ -46,7 +40,7 @@ def register_loader(name: str):
     return deco
 
 
-class BaseDataset:
+class BaseDataset(abc.ABC):
     """Loader interface: random access to frames."""
 
     def __init__(self, data_path: str, sequence: str = "", cfg=None):
@@ -54,11 +48,13 @@ class BaseDataset:
         self.sequence = sequence
         self.cfg = cfg
 
+    @abc.abstractmethod
     def __len__(self) -> int:
-        raise NotImplementedError
+        """The number of frames."""
 
+    @abc.abstractmethod
     def __getitem__(self, idx: int) -> dict:
-        raise NotImplementedError
+        """Frame ``idx``, a dict of the contract above."""
 
     @property
     def cam_names(self):
@@ -72,10 +68,6 @@ class BaseDataset:
 def dataset_factory(name: str, data_path: str, sequence: str = "",
                     cfg=None) -> BaseDataset:
     _import_loader_modules()
-    if name in UNPORTED_LOADERS:
-        raise NotImplementedError(
-            f"dataset loader '{name}' is not yet ported; available: "
-            f"{sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown dataset loader '{name}'; available: "
@@ -85,8 +77,14 @@ def dataset_factory(name: str, data_path: str, sequence: str = "",
 
 def _import_loader_modules():
     """Import the loader modules, which register themselves."""
+    import pings_tpu_torch.data.generic  # noqa: F401
     import pings_tpu_torch.data.kitti  # noqa: F401
+    import pings_tpu_torch.data.kitti360  # noqa: F401
+    import pings_tpu_torch.data.lidar  # noqa: F401
+    import pings_tpu_torch.data.ouster  # noqa: F401
+    import pings_tpu_torch.data.raw_formats  # noqa: F401
     import pings_tpu_torch.data.rgbd  # noqa: F401
+    import pings_tpu_torch.data.rosbag  # noqa: F401
     import pings_tpu_torch.data.synthetic  # noqa: F401
 
 

@@ -1,13 +1,13 @@
-"""Per-frame preprocessing: crop, downsample, camera projection.
+"""Per-frame preprocessing: crop, deskew, downsample, camera projection.
 
 Counterpart of ``pings_tpu/data/frame.py``: ``pad_pow2`` (:26-36), the
-``PreprocessedFrame`` record (:38), ``preprocess_frame`` (:53-134),
-``project_scan_to_cam`` (:137) and ``colorize_scan`` (:149-160). The crop
-and the two voxel downsamples run on ``device`` and their masks come back
-as numpy arrays, as in the JAX package; the camera projections run on
-``device`` and return tensors there. Every function defaults to "cuda" and
-raises without a card. Deskewing and random downsampling are not ported
-yet and raise.
+``PreprocessedFrame`` record (:38), ``preprocess_frame`` (:53-134, with
+the deskew :68-84 and random downsampling :85-91),
+``project_scan_to_cam`` (:137) and ``colorize_scan`` (:149-160). The crop,
+the deskew and the two voxel downsamples run on ``device`` and their
+results come back as numpy arrays, as in the JAX package; the camera
+projections run on ``device`` and return tensors there. Every function
+defaults to "cuda" and raises without a card.
 """
 
 from __future__ import annotations
@@ -51,22 +51,22 @@ def preprocess_frame(frame: dict, cfg, T_rel_last: np.ndarray,
                      deskew_on: bool,
                      device: str | torch.device = "cuda"
                      ) -> PreprocessedFrame:
-    """Crop and downsample a frame's scan: the map input at
-    ``vox_down_m`` and the tracker's source points at
+    """Crop, deskew and downsample a frame's scan: the map input at
+    ``vox_down_m`` (or a random share ``rand_down_r`` with
+    ``rand_downsample``) and the tracker's source points at
     ``source_vox_down_m`` (at most ``source_max_count``, thinned by a
-    stride), padded to powers of two; the cameras' data passed through."""
-    del T_rel_last      # used by deskewing only
+    stride), padded to powers of two; the cameras' data passed through.
+    With ``deskew_on`` and per-point times, each point is moved by the
+    share of ``T_rel_last`` (the last frame's relative motion) that its
+    time leaves to the end of the sweep; the times are normalized per
+    sensor where the frame has ``point_lidar_idx``."""
     device = resolve_device(device)
-    if deskew_on and frame.get("point_ts") is not None \
-            and len(frame["point_ts"]):
-        raise NotImplementedError("deskewing is not yet ported")
-    if cfg.rand_downsample:
-        raise NotImplementedError("random downsampling is not yet ported")
     out = PreprocessedFrame()
     out.raw = frame
     pts = np.asarray(frame["points"], np.float32)
     colors = pts[:, 3:6] if pts.shape[1] >= 6 else np.zeros_like(pts[:, :3])
     pts = pts[:, :3]
+    ts = frame.get("point_ts")
 
     pts_p, mask = pad_pow2(pts)
     colors_p, _ = pad_pow2(colors)
@@ -74,13 +74,37 @@ def preprocess_frame(frame: dict, cfg, T_rel_last: np.ndarray,
     tm = torch.as_tensor(mask, device=device)
     tm = tm & tf.crop_range_mask(tp, cfg.min_range, cfg.max_range,
                                  cfg.min_z, cfg.max_z)
-    keep_map = tf.voxel_down_sample_mask(tp, tm, cfg.vox_down_m)
+    if deskew_on and ts is not None and len(ts):
+        ts_np = np.asarray(ts, np.float32).copy()
+        lidar_idx = frame.get("point_lidar_idx")
+        if lidar_idx is not None and len(lidar_idx):
+            # several LiDARs, each sweeping on its own clock: normalize
+            # the times per sensor, so that one slerp of the relative
+            # motion compensates all of them
+            li = np.asarray(lidar_idx).reshape(-1)
+            for s_id in np.unique(li):
+                sel = li == s_id
+                t0, t1 = ts_np[sel].min(), ts_np[sel].max()
+                if t1 > t0:
+                    ts_np[sel] = (ts_np[sel] - t0) / (t1 - t0)
+        ts_p, _ = pad_pow2(ts_np)
+        tp = tf.deskew(tp, torch.as_tensor(ts_p, device=device),
+                       torch.as_tensor(np.asarray(T_rel_last, np.float32),
+                                       device=device))
+    if cfg.rand_downsample:
+        # keep each point with probability rand_down_r (a host generator,
+        # seeded as in the JAX package)
+        rng_ds = np.random.default_rng(cfg.seed + pts.shape[0])
+        keep_map = tm & torch.as_tensor(
+            rng_ds.random(tp.shape[0]) < cfg.rand_down_r, device=device)
+    else:
+        keep_map = tf.voxel_down_sample_mask(tp, tm, cfg.vox_down_m)
     keep_src = tf.voxel_down_sample_mask(tp, tm, cfg.source_vox_down_m)
 
-    out.points_l = pts_p
+    out.points_l = tp.cpu().numpy()
     out.colors = colors_p
     out.mask = keep_map.cpu().numpy()
-    out.point_ts = frame.get("point_ts")
+    out.point_ts = ts
     sem = frame.get("sem")
     if sem is not None and len(sem):
         sem_p, _ = pad_pow2(np.asarray(sem, np.int32).reshape(-1))

@@ -8,9 +8,14 @@ Counterpart of ``pings_tpu/mapping/sdf_mapper.py``: ``row_masked_adamw``
 (:105-116), ``make_sdf_step`` (the step body, :119-219),
 ``make_sdf_scan_step`` (:236-283) and ``init_sdf_train`` (:286-289). Per iteration: one neighbour search for
 the replay batch, BCE on the SDF, eikonal by central differences on the
-first ``eik_n`` points, colour L1, one backward pass, AdamW on the feature
-arrays (row-masked decay, ``lr``) and on the sdf and color decoders
-(``lr_mlp_base``). The trainables are the map's and the decoders' own
+first ``eik_n`` points, colour L1, with ``semantic_on`` the NLL of the
+samples' class labels (:190-201), one backward pass, AdamW on the feature
+arrays (row-masked decay, ``lr``) and on the sdf, color and (with
+``semantic_on``) sem decoders (``lr_mlp_base``). With
+``incidence_weight_on`` and ``incidence_source: "field"`` the BCE weights
+are scaled by the incidence of the sample's ray on the field's own
+gradient, by central differences over the whole batch (:136-137,
+:162-176). The trainables are the map's and the decoders' own
 tensors, updated in place; the SDF optimizer and the GS optimizer are two
 states over the same leaves, as in the JAX package.
 
@@ -41,10 +46,12 @@ import torch
 
 from pings_tpu_torch.mapping import losses
 from pings_tpu_torch.mapping import pool as rp
+from pings_tpu_torch.models import decoder as dec
 from pings_tpu_torch.models import field
 from pings_tpu_torch.models import neural_points as npm
 
 SDF_KEYS = ("geo_feat", "color_feat", "sdf", "color")
+MLP_KEYS = ("sdf", "color", "sem")      # the decoders the step may train
 
 
 class AdamW(torch.optim.Optimizer):
@@ -96,7 +103,8 @@ class AdamW(torch.optim.Optimizer):
 def sdf_param_leaves(params: Dict, key=None):
     """The leaf tensors of the SDF trainables (of one entry, with
     ``key``), in a fixed order: weights then biases for a decoder."""
-    for k in ([key] if key is not None else SDF_KEYS):
+    keys = SDF_KEYS + (("sem",) if "sem" in params else ())
+    for k in ([key] if key is not None else keys):
         v = params[k]
         if isinstance(v, torch.Tensor):
             yield v
@@ -107,12 +115,12 @@ def sdf_param_leaves(params: Dict, key=None):
 
 def sdf_params(m, decoders, semantic_on: bool = False) -> Dict:
     """The trainables of the SDF step: the map's feature arrays and the
-    sdf and color decoders, their own tensors, marked as leaves that
-    require a gradient."""
-    if semantic_on:
-        raise NotImplementedError("the semantic head is not yet ported")
+    sdf and color decoders (and the sem decoder with ``semantic_on``),
+    their own tensors, marked as leaves that require a gradient."""
     p = {"geo_feat": m.geo_feat, "color_feat": m.color_feat,
          "sdf": decoders["sdf"], "color": decoders["color"]}
+    if semantic_on:
+        p["sem"] = decoders["sem"]
     for t in sdf_param_leaves(p):
         t.requires_grad_(True)
     return p
@@ -120,11 +128,12 @@ def sdf_params(m, decoders, semantic_on: bool = False) -> Dict:
 
 def make_sdf_optimizer(cfg, params: Dict) -> AdamW:
     """Two AdamW groups: the feature arrays with the row-masked decay at
-    ``lr``, the sdf and color decoders at ``lr_mlp_base``."""
+    ``lr``, the decoders (sdf, color, and sem where ``params`` has it) at
+    ``lr_mlp_base``."""
     groups = [dict(params=[t for k in ("geo_feat", "color_feat")
                            for t in sdf_param_leaves(params, k)],
                    lr=cfg.lr, row_masked=True, name="feat"),
-              dict(params=[t for k in ("sdf", "color")
+              dict(params=[t for k in MLP_KEYS if k in params
                            for t in sdf_param_leaves(params, k)],
                    lr=cfg.lr_mlp_base, row_masked=False, name="mlp")]
     opt = AdamW(groups, eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
@@ -190,11 +199,6 @@ def make_sdf_step(cfg, optimizer: AdamW):
     one training iteration that updates ``params`` in place.
     ``static_map`` supplies the map's non-trainable state; ``freeze``
     zeroes the decoders' gradients."""
-    if cfg.semantic_on:
-        raise NotImplementedError("the semantic head is not yet ported")
-    if cfg.incidence_weight_on and cfg.incidence_source == "field":
-        raise NotImplementedError("field-source incidence weighting is "
-                                  "not yet ported")
     k = cfg.query_nn_k
     stencil_r = cfg.num_nei_cells
     alpha = cfg.search_alpha
@@ -202,10 +206,18 @@ def make_sdf_step(cfg, optimizer: AdamW):
     sigma = cfg.sigma_sigmoid_m
     eik_n = max(cfg.bs // max(cfg.gradient_decimation, 1), 8)
     grad_delta = cfg.voxel_size_m * cfg.num_grad_step_ratio
+    incidence_floor = cfg.incidence_weight_floor
     color_on = cfg.color_on
+    sem_on = cfg.semantic_on
+    # "field"-source incidence only: the "scan" source weights the samples
+    # when they are drawn (ops/scan_normals.py and the sampler)
+    incidence_on = (cfg.incidence_weight_on
+                    and cfg.incidence_source == "field")
 
     def step(params, batch, static_map, decoders, freeze) -> SdfStepMetrics:
         pts, sdf_label, color_label, weight, valid = batch[:5]
+        sem_label = batch[5] if len(batch) > 5 else None
+        ray = batch[6] if len(batch) > 6 else None
         # one neighbour search for the iteration, outside the tape: the
         # selection depends only on the map's positions, hash and masks
         kidx = npm.query_neighbor_idx(static_map, pts, k, stencil_r, alpha)
@@ -216,12 +228,22 @@ def make_sdf_step(cfg, optimizer: AdamW):
         q = npm.eval_neighbors(m, pts, kidx, stencil_r, alpha)
         sdf, _, qvalid = field.sdf_from_query(d, q, sigma_scale)
         v = (valid & qvalid).to(torch.float32)
-        # eikonal on the first eik_n points of the (shuffled) batch, by
-        # central differences on the centre's neighbour table
-        g = field.sdf_grad_numerical_nn(m, d, pts[:eik_n], kidx[:eik_n],
-                                        sigma_scale, grad_delta, stencil_r,
-                                        alpha)
-        bce = losses.sdf_bce_loss(sdf, sdf_label, weight, sigma, v)
+        w_b = weight
+        if incidence_on and ray is not None:
+            # the whole batch's central-difference gradient gives the
+            # incidence weights (no gradient through them) and the eikonal
+            g_all = field.sdf_grad_numerical_nn(m, d, pts, kidx, sigma_scale,
+                                                grad_delta, stencil_r, alpha)
+            w_b = w_b * losses.incidence_weights(g_all, ray,
+                                                 incidence_floor).detach()
+            g = g_all[:eik_n]
+        else:
+            # eikonal on the first eik_n points of the (shuffled) batch, by
+            # central differences on the centre's neighbour table
+            g = field.sdf_grad_numerical_nn(m, d, pts[:eik_n], kidx[:eik_n],
+                                            sigma_scale, grad_delta,
+                                            stencil_r, alpha)
+        bce = losses.sdf_bce_loss(sdf, sdf_label, w_b, sigma, v)
         eik = losses.eikonal_loss(g, v[:eik_n])
         if color_on:
             cpred, cvalid = field.color_from_query(d, q)
@@ -229,17 +251,30 @@ def make_sdf_step(cfg, optimizer: AdamW):
             closs = losses.color_l1_loss(cpred, color_label, cmask)
         else:
             closs = torch.zeros((), device=pts.device)
-        total = bce + cfg.weight_e * eik + cfg.weight_c * closs
+        if sem_on and sem_label is not None:
+            # NLL on the labelled samples near the surface
+            logits = dec.mlp_forward(d["sem"], q.feat)
+            blended = torch.sum(logits * q.weights[..., None], dim=-2)
+            log_prob = torch.log_softmax(blended, dim=-1)
+            smask = v * q.valid * (sem_label >= 0) \
+                * (torch.abs(sdf_label) < 2.0 * sigma)
+            sloss = losses.sem_nll_loss(
+                log_prob, torch.clamp_min(sem_label, 0), smask)
+        else:
+            sloss = torch.zeros((), device=pts.device)
+        total = bce + cfg.weight_e * eik + cfg.weight_c * closs \
+            + cfg.weight_s * sloss
         total.backward()
         if freeze:
-            for key in ("sdf", "color"):
-                for t in sdf_param_leaves(params, key):
-                    t.grad = None      # filled with zeros just below
+            for key in MLP_KEYS:
+                if key in params:
+                    for t in sdf_param_leaves(params, key):
+                        t.grad = None      # filled with zeros just below
         nonfinite = guard_nonfinite(leaves)
         optimizer.step()
         z = lambda x: x.detach()
-        return SdfStepMetrics(z(total), z(bce), z(eik), z(closs),
-                              torch.zeros((), device=pts.device), nonfinite)
+        return SdfStepMetrics(z(total), z(bce), z(eik), z(closs), z(sloss),
+                              nonfinite)
 
     return step
 

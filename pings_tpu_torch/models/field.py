@@ -1,13 +1,12 @@
-"""Neural field evaluation: SDF and colour at arbitrary points.
+"""Neural field evaluation: SDF, colour and semantics at arbitrary points.
 
-Counterpart of ``pings_tpu/models/field.py`` for the training path:
-``sdf_from_query`` (:25), ``color_from_query`` (:33), ``sdf_at`` (:38),
-``color_at`` (:59), ``check_invalid_gs`` (:106-136),
-``sdf_grad_numerical_nn`` (:139-156) and
+Counterpart of ``pings_tpu/models/field.py``: ``sdf_from_query`` (:25),
+``color_from_query`` (:33), ``sdf_at`` (:38), ``color_at`` (:59),
+``dynamic_mask_from`` (:67), ``dynamic_points`` (:80), ``sem_at`` (:95),
+``check_invalid_gs`` (:106-136), ``sdf_grad_numerical_nn`` (:139-156) and
 ``sdf_grad_analytical`` (:171-192). Decoding is per neighbour (feature +
 relative offset); the K predictions are blended with the query's IDW
-weights. The dynamic-point filter and the semantic head are not ported
-yet.
+weights.
 """
 
 from __future__ import annotations
@@ -56,6 +55,44 @@ def color_at(m: npm.NeuralPointMap, decoders, pts: torch.Tensor,
                           search_alpha=search_alpha,
                           use_local_mask=use_local_mask)
     return color_from_query(decoders, q)
+
+
+def dynamic_mask_from(sdf: torch.Tensor, certainty: torch.Tensor,
+                      valid: torch.Tensor, resolution: float,
+                      certainty_thre: float,
+                      sdf_ratio_thre: float) -> torch.Tensor:
+    """A measurement is dynamic where it lands in stable free space: the
+    map is confident there (blended certainty above ``certainty_thre``)
+    and the SDF puts the point well off any surface (sdf > ratio *
+    resolution)."""
+    return (valid & (certainty > certainty_thre)
+            & (sdf > sdf_ratio_thre * resolution))
+
+
+def dynamic_points(m: npm.NeuralPointMap, decoders, pts: torch.Tensor,
+                   sigma_scale: float, certainty_thre: float,
+                   sdf_ratio_thre: float, k: int = 6, stencil_r: int = 1,
+                   search_alpha: float = 0.2) -> torch.Tensor:
+    """(N,) bool: the scan points that are likely moving objects against
+    the current map, to be dropped before the insert and the sampling."""
+    q = npm.query_feature(m, pts, k=k, stencil_r=stencil_r,
+                          search_alpha=search_alpha)
+    per_nb = dec.mlp_forward(decoders["sdf"], q.feat)[..., 0] * sigma_scale
+    sdf = torch.sum(per_nb * q.weights, dim=-1)
+    cert = torch.sum(m.certainty[q.nn_idx] * q.weights, dim=-1)
+    return dynamic_mask_from(sdf, cert, q.valid, m.resolution,
+                             certainty_thre, sdf_ratio_thre)
+
+
+def sem_at(m: npm.NeuralPointMap, decoders, pts: torch.Tensor, k: int = 6,
+           stencil_r: int = 1, search_alpha: float = 0.2):
+    """Class log-probabilities at points: (log_prob (N, C), valid (N,)),
+    the per-neighbour logits blended with the IDW weights."""
+    q = npm.query_feature(m, pts, k=k, stencil_r=stencil_r,
+                          search_alpha=search_alpha)
+    logits = dec.mlp_forward(decoders["sem"], q.feat)
+    blended = torch.sum(logits * q.weights[..., None], dim=-2)
+    return torch.log_softmax(blended, dim=-1), q.valid
 
 
 @torch.no_grad()

@@ -5,7 +5,9 @@ Counterpart of ``pings_tpu/odometry/tracker.py``: ``make_registration_step``
 Each iteration queries the SDF value, its analytical gradient and its
 spread at the transformed source points, gates them by gradient norm and
 spread, weights the point-to-surface residuals with a Geman-McClure kernel
-and a gradient-anomaly factor, and solves the 6x6 normal equations in
+and a gradient-anomaly factor (with ``photometric_loss_on``, adds the
+rows of the points' intensity against the map's colour field, :98-112),
+and solves the 6x6 normal equations in
 float32 with symmetric Jacobi equilibration and LM damping, then retracts
 by the SE(3) exponential. The health checks run on the host in float64.
 
@@ -39,11 +41,10 @@ class RegStats(NamedTuple):
 
 
 def make_registration_step(cfg):
-    """reg_step(m, decoders, src, src_mask, T) -> RegStats: the normal
-    equations of one GN iteration at the pose ``T`` (4x4 float32)."""
-    if cfg.photometric_loss_on:
-        raise NotImplementedError("photometric registration rows are not "
-                                  "yet ported")
+    """reg_step(m, decoders, src, src_mask, src_intensity, T) -> RegStats:
+    the normal equations of one GN iteration at the pose ``T`` (4x4
+    float32). ``src_intensity`` (S,) in [0, 1], -1 where a point has no
+    colour, feeds the photometric rows (``photometric_loss_on``)."""
     sigma_scale = cfg.logistic_gaussian_ratio * cfg.sigma_sigmoid_m
     k = cfg.query_nn_k
     stencil_r = cfg.num_nei_cells
@@ -52,10 +53,25 @@ def make_registration_step(cfg):
     min_gn = cfg.reg_min_grad_norm
     max_gn = cfg.reg_max_grad_norm
     max_std = cfg.max_sdf_std_ratio * cfg.voxel_size_m
+    photometric = cfg.photometric_loss_on
+    w_photo = cfg.photometric_loss_weight
+
+    def intensity_grad(m, decoders, x: torch.Tensor):
+        """The map's intensity (mean RGB) at the points, its gradient with
+        respect to each point, and the query's valid flags. The neighbour
+        choice is a hash lookup with no gradient; the points are
+        independent, so one gradient of the summed intensities gives each
+        point's own (JAX's ``vmap(grad)``)."""
+        with torch.enable_grad():
+            p = x.detach().requires_grad_(True)
+            c, v = field.color_at(m, decoders, p, k, stencil_r, alpha)
+            i = torch.mean(c, dim=-1)
+            (g,) = torch.autograd.grad(i.sum(), p)
+        return i.detach(), g, v
 
     @torch.no_grad()
     def reg_step(m, decoders, src: torch.Tensor, src_mask: torch.Tensor,
-                 T: torch.Tensor) -> RegStats:
+                 src_intensity: torch.Tensor, T: torch.Tensor) -> RegStats:
         x = src @ T[:3, :3].T + T[:3, 3]
         sdf, grad, std, valid = field.sdf_grad_analytical(
             m, decoders, x, sigma_scale, k, stencil_r, alpha)
@@ -75,6 +91,17 @@ def make_registration_step(cfg):
         Jw = J * w[:, None]
         H = J.T @ Jw
         g = -(Jw.T @ r)
+        if photometric:
+            # intensity residual rows with the colour field's gradient and
+            # the same robust weights, into the same normal equations
+            cpred, cgrad, cvalid = intensity_grad(m, decoders, x)
+            has_meas = src_intensity >= 0.0      # -1 marks "no colour"
+            r_c = cpred - src_intensity
+            w_c = torch.where(ok & cvalid & has_meas, w, torch.zeros_like(w))
+            J_c = torch.cat([cgrad, torch.linalg.cross(x, cgrad)], dim=-1)
+            Jw_c = J_c * w_c[:, None]
+            H = H + w_photo * (J_c.T @ Jw_c)
+            g = g - w_photo * (Jw_c.T @ r_c)
         wsum = torch.clamp_min(torch.sum(w), 1e-9)
         mean_res = torch.sum(torch.abs(r) * w) / wsum
         return RegStats(H, g, mean_res, torch.sum(ok), torch.sum(src_mask))
@@ -92,7 +119,7 @@ class LoopOut(NamedTuple):
 
 
 def make_track_loop(cfg):
-    """track_loop(m, decoders, src, msk, T0, max_iter) -> LoopOut.
+    """track_loop(m, decoders, src, msk, inten, T0, max_iter) -> LoopOut.
 
     The JAX version's control flow: stop before retracting when fewer than
     10 residuals survive the gates or the step is not finite or too large;
@@ -110,14 +137,15 @@ def make_track_loop(cfg):
     max_step_rot = 1.0   # rad
 
     @torch.no_grad()
-    def track_loop(m, decoders, src, msk, T0, max_iter: int) -> LoopOut:
+    def track_loop(m, decoders, src, msk, inten, T0,
+                   max_iter: int) -> LoopOut:
         eye6 = torch.eye(6, device=src.device)
         T = T0.to(torch.float32)
         last_res = torch.tensor(float("inf"), device=src.device)
         stats = None
         it = 0
         while it < max_iter:
-            stats = reg_step(m, decoders, src, msk, T)
+            stats = reg_step(m, decoders, src, msk, inten, T)
             few = stats.valid_count < 10
             # damped solve (H + lm diag(H)) xi = g with symmetric Jacobi
             # equilibration: xi = y / d where (H / d d^T + lm I) y = g / d
@@ -174,15 +202,17 @@ class Tracker:
               max_iter: Optional[int] = None,
               source_intensity: Optional[np.ndarray] = None) -> TrackResult:
         cfg = self.cfg
-        if source_intensity is not None:
-            raise NotImplementedError("photometric registration rows are "
-                                      "not yet ported")
         dev = self.device
         src = torch.as_tensor(np.asarray(source, np.float32), device=dev)
         msk = torch.as_tensor(np.asarray(source_mask, bool), device=dev)
+        if source_intensity is None:      # no colour measurement
+            inten = torch.full((src.shape[0],), -1.0, device=dev)
+        else:
+            inten = torch.as_tensor(np.asarray(source_intensity, np.float32),
+                                    device=dev)
         max_iter = max_iter or cfg.reg_iter_n
         out = self._track_loop(
-            m, decoders, src, msk,
+            m, decoders, src, msk, inten,
             torch.as_tensor(np.asarray(init_T_w_l, np.float32), device=dev),
             int(max_iter))
         # one read for the loop's results

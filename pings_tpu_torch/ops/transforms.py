@@ -1,11 +1,13 @@
 """Geometry primitives the render and training paths need: quaternions,
-SE(3), the voxel hash and the camera projection of a scan.
+SE(3), the voxel hash, deskewing and the camera projection of a scan.
 
 Counterpart of ``pings_tpu/ops/transforms.py`` (``quat_normalize`` ..
-``quat_to_rotmat`` :32-76, ``rotmat_to_quat`` :79-115, ``so3_exp``/``skew``/``se3_exp`` :156-206,
+``quat_to_rotmat`` :32-76, ``rotmat_to_quat`` :79-115, ``quat_slerp`` :127-150,
+``so3_exp``/``skew``/``se3_exp`` :156-206, ``slerp_pose`` :218-240,
 ``voxel_hash`` :241, ``voxel_down_sample_mask`` :254-281,
 ``project_points_to_cam`` :321, ``splat_depth_map`` :350,
-``colorize_points`` :371-383, ``crop_range_mask`` :390-399).
+``colorize_points`` :371-383, ``crop_range_mask`` :390-399,
+``deskew_points`` :288-310 and ``deskew`` :312-314).
 
 Conventions: quaternions are (w, x, y, z), Hamilton, unit norm; transforms
 are 4x4 with points as row vectors, ``p' = T @ [p; 1]``.
@@ -98,6 +100,28 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (qw * uv + uuv)
 
 
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t,
+               eps: float = 1e-7) -> torch.Tensor:
+    """Spherical interpolation between q0 and q1 at fraction t
+    (broadcast). The shorter arc: q1 flips sign where the dot product is
+    negative. Where sin(theta) < ``eps`` the weights are linear (1 - t, t)."""
+    q0 = quat_normalize(q0)
+    q1 = quat_normalize(q1)
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    near = sin_theta < eps
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    if t.ndim < q0.ndim:
+        t = t[..., None]
+    safe = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(near, t, torch.sin(t * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
 def skew(w: torch.Tensor) -> torch.Tensor:
     wx, wy, wz = w.unbind(-1)
     z = torch.zeros_like(wx)
@@ -139,6 +163,44 @@ def se3_exp(xi: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+def slerp_pose(T0: torch.Tensor, T1: torch.Tensor, t) -> torch.Tensor:
+    """Interpolate 4x4 poses: slerp of the rotations, lerp of the
+    translations, at fraction t."""
+    q = quat_slerp(rotmat_to_quat(T0[..., :3, :3]),
+                   rotmat_to_quat(T1[..., :3, :3]), t)
+    tt = torch.as_tensor(t, dtype=T0.dtype, device=T0.device)
+    if tt.ndim < T0[..., 0, 0].ndim + 1:
+        tt = tt[..., None]
+    trans = (1.0 - tt) * T0[..., :3, 3] + tt * T1[..., :3, 3]
+    shape = torch.broadcast_shapes(T0.shape, T1.shape)
+    T = torch.zeros(shape, dtype=T0.dtype, device=T0.device)
+    T[..., :3, :3] = quat_to_rotmat(q)
+    T[..., :3, 3] = trans
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def deskew_points(points: torch.Tensor, ts_norm: torch.Tensor,
+                  T_rel: torch.Tensor, ref_frac: float = 1.0):
+    """Per-point motion compensation toward the pose at ``ref_frac``.
+    ``T_rel`` is the relative motion over the sweep; a point at normalized
+    time t in [0, 1] is moved by slerp(I, T_rel, ref_frac - t).
+    points (N, 3), ts_norm (N,). Returns (points (N, 3), frac (N,))."""
+    n = points.shape[0]
+    frac = ref_frac - ts_norm
+    q1 = rotmat_to_quat(T_rel[:3, :3]).expand(n, 4)
+    q_eye = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=points.dtype,
+                         device=points.device).expand(n, 4)
+    q = quat_slerp(q_eye, q1, frac)
+    t = frac[:, None] * T_rel[:3, 3]
+    return quat_rotate(q, points) + t, frac
+
+
+def deskew(points: torch.Tensor, ts_norm: torch.Tensor, T_rel: torch.Tensor,
+           ref_frac: float = 1.0) -> torch.Tensor:
+    return deskew_points(points, ts_norm, T_rel, ref_frac)[0]
 
 
 def inv_cell(size: float) -> float:

@@ -17,8 +17,13 @@ With ``save_merged_pc`` the map update keeps each scan downsampled at
 twice ``vox_down_m`` for ``merged_point_cloud`` (:303-308, :566-570); with
 ``save_tsdf_mesh`` it keeps every keyframe's depth map, intrinsics, pose
 and image in ``tsdf_frames`` (:541-548) for the command line's TSDF mesh.
-Not ported yet, and refused at construction: the dynamic filter,
-semantics, mono depth and deskewing.
+The options of the JAX package run as there: deskewing and random
+downsampling in ``preprocess_frame``, the tracker's photometric rows
+(``photometric_loss_on``, :178-182), the dynamic filter before the insert
+(``dynamic_filter_on``, :491-497), the frame's semantic labels into the
+ray samples and the SDF step's NLL term (``semantic_on``, :575-581), and
+mono-depth densification of the keyframes' depth (``mono_depth_on``,
+:76-78 and :673-679).
 
 State-synchronization model: the trainable leaves the SDF and GS
 optimizers hold are the map's feature tensors, the decoders' weights and
@@ -41,6 +46,7 @@ import torch
 from pings_tpu_torch import resolve_device
 from pings_tpu_torch.data.frame import (
     PreprocessedFrame, colorize_scan, preprocess_frame, project_scan_to_cam)
+from pings_tpu_torch.data.monodepth import densify_depth, make_provider
 from pings_tpu_torch.mapping import gs_mapper, pool as rp, sdf_mapper
 from pings_tpu_torch.mapping.campool import CamPool
 from pings_tpu_torch.mapping.sampler import sample_rays_cfg
@@ -61,8 +67,6 @@ from pings_tpu_torch.slam.pgo import PoseGraph
 from pings_tpu_torch.utils import pose as hp
 
 MAX_FRAMES = 100000
-# options whose code paths are not ported yet
-UNPORTED = ("dynamic_filter_on", "semantic_on", "mono_depth_on", "deskew")
 
 
 class FrameReport:
@@ -84,9 +88,6 @@ class SlamSystem:
         checkpoint passes False and has neither until then."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        for opt in UNPORTED:
-            if getattr(cfg, opt):
-                raise NotImplementedError(f"{opt} is not yet ported")
         self.m: Optional[NeuralPointMap] = None
         self.decoders: Optional[dict] = None
         if fresh:
@@ -116,6 +117,15 @@ class SlamSystem:
         # TSDF fusion at the end of a run (save_tsdf_mesh)
         self._merged_pc: List[np.ndarray] = []
         self.tsdf_frames: List[tuple] = []
+        # the mono-depth model (None where its weights are missing; a
+        # caller may set any function of an (H, W, 3) uint8 image)
+        self.mono_provider = None
+        if cfg.mono_depth_on:
+            self.mono_provider = make_provider(cfg.mono_depth_provider)
+            if self.mono_provider is None:
+                print(f"mono_depth_on: provider "
+                      f"'{cfg.mono_depth_provider}' unavailable, keyframes "
+                      f"keep their LiDAR depth")
 
         self.poses: List[np.ndarray] = []     # post-PGO odom poses (f64)
         self.odom_only_poses: List[np.ndarray] = []
@@ -210,7 +220,9 @@ class SlamSystem:
             if cfg.track_on:
                 res = self.tracker.track(
                     self.m, self.decoders, pre.source_points,
-                    pre.source_mask, T_guess)
+                    pre.source_mask, T_guess,
+                    source_intensity=pre.source_intensity
+                    if cfg.photometric_loss_on else None)
                 rep.tracking_valid = res.valid and not res.degenerate
                 T = res.T_w_l if rep.tracking_valid else T_guess
                 rep.metrics["track_res_m"] = res.mean_res
@@ -466,10 +478,11 @@ class SlamSystem:
     @torch.no_grad()
     def _map_update(self, pre: PreprocessedFrame, fid: int,
                     rep: FrameReport):
-        """On the device: colour the scan from the cameras, insert, the
-        local window and its surrounding annulus, scan-normal incidence,
-        ray sampling, the replay pool, the endpoint query, the certainty
-        update and the new-observation counts."""
+        """On the device: colour the scan from the cameras, the dynamic
+        filter, insert, the local window and its surrounding annulus,
+        scan-normal incidence, ray sampling (with the frame's semantic
+        labels), the replay pool, the endpoint query, the certainty update
+        and the new-observation counts."""
         cfg = self.cfg
         dev = self.device
         T = self.poses[-1]
@@ -505,6 +518,18 @@ class SlamSystem:
 
         thre = cfg.local_map_travel_dist_ratio * cfg.local_map_radius
         origin = torch.as_tensor(T[:3, 3].astype(np.float32), device=dev)
+        n_dyn = None
+        if cfg.dynamic_filter_on and fid > 0:
+            # drop what lands in the map's stable free space (frame 0 has
+            # no map to test against)
+            dyn = field.dynamic_points(
+                self.m, self.decoders, pts,
+                cfg.logistic_gaussian_ratio * cfg.sigma_sigmoid_m,
+                cfg.dynamic_certainty_thre, cfg.dynamic_sdf_ratio_thre,
+                k=cfg.query_nn_k, stencil_r=cfg.num_nei_cells,
+                search_alpha=cfg.search_alpha)
+            n_dyn = torch.sum(msk & dyn)
+            msk = msk & ~dyn
         quats = torch.zeros((len(pts_w), 4), device=dev)
         quats[:, 0] = 1.0
         m = npm.insert_points(self.m, pts, cols, msk, quats, fid,
@@ -522,8 +547,12 @@ class SlamSystem:
         if self.draws is not None:
             ray_draws, slot_draws = self.draws.map_update(len(pts_w),
                                                           self.pool)
+        sem = None
+        if cfg.semantic_on and pre.sem is not None:
+            sem = torch.as_tensor(pre.sem, device=dev)
         smp = sample_rays_cfg(self._gen, pts, cols, msk, origin, cfg,
-                              incid_cos=incid, draws=ray_draws)
+                              sem_labels=sem, incid_cos=incid,
+                              draws=ray_draws)
         self.pool = rp.pool_insert(self.pool, smp, fid, self._gen,
                                    rnd=slot_draws)
         q = npm.query_feature(m, pts, k=cfg.query_nn_k,
@@ -536,6 +565,8 @@ class SlamSystem:
         self._sur_mask = sur
         if fid > 0:
             self.new_obs_ratio = float(n_new) / max(float(n_valid), 1.0)
+        if n_dyn is not None:
+            rep.metrics["dyn_dropped"] = int(n_dyn)
 
     def _ensure_sdf(self):
         if self._sdf is None:
@@ -662,9 +693,6 @@ class SlamSystem:
         T = self.poses[-1]
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                         device=dev)
-        if cfg.mono_depth_on:
-            raise NotImplementedError("mono depth densification not yet "
-                                      "ported")
         # held-out eval frames never become keyframes
         held_out = (cfg.gs_eval_hold_out_every > 0
                     and fid % cfg.gs_eval_hold_out_every == 0)
@@ -685,6 +713,15 @@ class SlamSystem:
                     depth = project_scan_to_cam(pts_w, pre.mask, T_c_w,
                                                 cd["K"], w, h, dev)
                 sky = cd.get("sky")
+                if self.mono_provider is not None:
+                    # a monocular depth map, fitted to the LiDAR's, fills
+                    # its holes (on the host, as in the JAX package)
+                    depth, mono_sky = densify_depth(
+                        np.asarray(cd["img"]), depth.cpu().numpy(),
+                        self.mono_provider, max_depth=cfg.max_range)
+                    depth = f32(depth)
+                    if sky is None:
+                        sky = mono_sky.astype(np.float32)
                 cam = CamView(
                     K=f32(cd["K"]), T_c_w=f32(T_c_w), rgb=rgb, depth=depth,
                     sky=f32(sky) if sky is not None

@@ -41,7 +41,9 @@ def test_port_imports_neither_jax_nor_pings_tpu():
                 "data.imageio", "data.kitti", "vis.control", "cli",
                 "data.rgbd", "data.pointcloud_io", "native", "slam.mesher",
                 "slam.tsdf", "eval.image", "eval.lpips", "eval.mesh",
-                "inspect_map"):
+                "inspect_map", "data.monodepth", "data.bag_formats",
+                "data.rosbag", "data.ouster", "data.lidar", "data.kitti360",
+                "data.generic", "data.raw_formats"):
         assert "pings_tpu_torch." + new in mods
     # the native library loaded is the port's build, never the JAX
     # package's pings_tpu/native/libpings.so
@@ -64,15 +66,16 @@ def test_port_imports_neither_jax_nor_pings_tpu():
 
 
 def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
-    """chip_smoke.py and scripts/torch_make_{kitti,replica}_data.py (which
-    write chip_smoke.py's kitti and replica data) name no module of jax or
-    pings_tpu in an import (read from their syntax trees: the smoke needs
-    a card to run)."""
+    """chip_smoke.py and scripts/torch_make_{kitti,replica,bag}_data.py
+    (which write chip_smoke.py's kitti, replica and bag data) name no
+    module of jax or pings_tpu in an import (read from their syntax trees:
+    the smoke needs a card to run); the bag writer is numpy alone."""
     import ast
 
     for path in ("chip_smoke.py",
                  os.path.join("scripts", "torch_make_kitti_data.py"),
-                 os.path.join("scripts", "torch_make_replica_data.py")):
+                 os.path.join("scripts", "torch_make_replica_data.py"),
+                 os.path.join("scripts", "torch_make_bag_data.py")):
         with open(os.path.join(ROOT, path)) as f:
             tree = ast.parse(f.read())
         names = []
@@ -81,7 +84,8 @@ def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
                 names += [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names.append(node.module or "")
-        assert any(n.startswith("pings_tpu_torch") for n in names), path
+        assert any(n.startswith("pings_tpu_torch") for n in names) \
+            or path.endswith("torch_make_bag_data.py"), path
         bad = [n for n in names if n.split(".")[0] in (
             "jax", "jaxlib", "flax", "optax", "pings_tpu")]
         assert not bad, (path, bad)
@@ -160,10 +164,11 @@ def test_training_entry_points_default_to_cuda():
 
 def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     """A fresh ``SlamSystem`` and its parts default to cuda and raise
-    without a card; every option whose code path is not ported raises
-    ``NotImplementedError``, at construction or where the step is made.
-    One test function: the suite's processes take files in the order of
-    their test counts, and this file keeps its place in that order."""
+    without a card. Every option of the JAX package is ported: each
+    builds a system on the CPU and makes its steps (the name is kept from
+    when they raised). One test function: the suite's processes take
+    files in the order of their test counts, and this file keeps its
+    place in that order."""
     _no_card()
     from pings_tpu_torch.config import Config
     from pings_tpu_torch.data import frame as fr
@@ -171,7 +176,8 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     from pings_tpu_torch.models.decoder import init_decoders
     from pings_tpu_torch.models.neural_points import init_map
     from pings_tpu_torch.odometry.tracker import Tracker
-    from pings_tpu_torch.slam.pipeline import UNPORTED, SlamSystem
+    from pings_tpu_torch.slam import pipeline
+    from pings_tpu_torch.slam.pipeline import SlamSystem
 
     small = dict(max_points=64, buffer_size=64, pool_capacity=64)
     cfg = Config.load(overrides=dict(small, track_on=True, gs_on=True))
@@ -204,22 +210,32 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     assert kitti.pgo_on
     s = SlamSystem(kitti, device="cpu")
     assert s.pgo is not None and s.sc is not None
-    assert set(UNPORTED) == {"dynamic_filter_on", "semantic_on",
-                             "mono_depth_on", "deskew"}
     # the merged cloud and the TSDF keyframes are ported
     s = SlamSystem(Config.load(overrides=dict(
         small, save_merged_pc=True, save_tsdf_mesh=True)), device="cpu")
     assert s.merged_point_cloud().shape == (0, 6) and s.tsdf_frames == []
-    for opt in UNPORTED:
-        with pytest.raises(NotImplementedError, match=opt):
-            SlamSystem(Config.load(overrides=dict(small, **{opt: True})),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="photometric"):
-        Tracker(Config.load(overrides={"photometric_loss_on": True}), "cpu")
+    # the options that raised until they were ported build and make
+    # their steps; mono depth without a provider keeps the LiDAR depth
+    assert not hasattr(pipeline, "UNPORTED")
+    for opt in ("dynamic_filter_on", "semantic_on", "mono_depth_on",
+                "deskew"):
+        s = SlamSystem(Config.load(overrides=dict(
+            small, mono_depth_provider="none", **{opt: True})), device="cpu")
+        assert getattr(s.cfg, opt) and s.mono_provider is None
+    sem = Config.load(overrides=dict(small, semantic_on=True))
+    s = SlamSystem(sem, device="cpu")
+    s._ensure_sdf()
+    assert "sem" in s._sdf[1]
+    assert Tracker(Config.load(overrides={"photometric_loss_on": True}),
+                   "cpu").cfg.photometric_loss_on
     for over in ({"semantic_on": True},
                  {"incidence_weight_on": True, "incidence_source": "field"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            sdf_mapper.make_sdf_scan_step(Config.load(overrides=over), None)
+        c = Config.load(overrides=dict(small, **over))
+        params = sdf_mapper.sdf_params(init_map(c, device="cpu"),
+                                       init_decoders(torch.Generator(), c,
+                                                     "cpu"), c.semantic_on)
+        assert callable(sdf_mapper.make_sdf_scan_step(
+            c, sdf_mapper.make_sdf_optimizer(c, params)))
 
 
 def test_render_raises_without_a_card():

@@ -89,12 +89,28 @@ def test_preprocess_frame(over):
 
 
 def test_preprocess_unported_options_raise():
-    cfg = TConfig.load(overrides=dict(rand_downsample=True))
+    """Random downsampling and deskewing, which raised before they were
+    ported, now run and give the JAX package's frame: the random mask bit
+    for bit, the deskewed points within 1e-5 m (tests/test_torch_deskew.py
+    holds them in detail)."""
+    over = dict(rand_downsample=True, rand_down_r=0.5)
     frame = SyntheticDataset(sequence="1:line")[0]
-    with pytest.raises(NotImplementedError, match="random downsampling"):
-        tfr.preprocess_frame(frame, cfg, np.eye(4), False, "cpu")
-    with pytest.raises(NotImplementedError, match="deskewing"):
-        tfr.preprocess_frame(frame, TConfig(), np.eye(4), True, "cpu")
+    a = jfr.preprocess_frame(frame, JConfig.load(overrides=over), np.eye(4),
+                             False)
+    b = tfr.preprocess_frame(frame, TConfig.load(overrides=over), np.eye(4),
+                             False, "cpu")
+    np.testing.assert_array_equal(b.mask, a.mask)
+    assert 0 < b.mask.sum() < 0.6 * len(b.mask)
+    frame = dict(frame, point_ts=np.linspace(0, 1, len(frame["points"]),
+                                             dtype=np.float32))
+    T_rel = np.eye(4)
+    T_rel[:3, :3] = hp.so3_exp(np.array([0.0, 0.0, 0.05]))
+    T_rel[:3, 3] = [0.8, 0.1, 0.0]
+    a = jfr.preprocess_frame(frame, JConfig(), T_rel, True)
+    b = tfr.preprocess_frame(frame, TConfig(), T_rel, True, "cpu")
+    np.testing.assert_allclose(b.points_l, a.points_l, rtol=0, atol=1e-5)
+    n = len(frame["points"])
+    assert np.abs(b.points_l[:n] - frame["points"][:, :3]).max() > 0.5
 
 
 def test_colorize_scan(rng):

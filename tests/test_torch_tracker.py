@@ -66,7 +66,8 @@ def test_registration_step_normal_equations(frame1):
         jnp.full(len(pre.source_mask), -1.0), jnp.asarray(T))
     tst = ttr.make_registration_step(f["tcfg"])(
         f["tm"], f["td"], torch.from_numpy(pre.source_points),
-        torch.from_numpy(pre.source_mask), torch.from_numpy(T))
+        torch.from_numpy(pre.source_mask),
+        torch.full((len(pre.source_mask),), -1.0), torch.from_numpy(T))
     H, g = np.asarray(jst.H), np.asarray(jst.g)
     np.testing.assert_allclose(tst.H.numpy(), H, rtol=0,
                                atol=1e-4 * np.abs(H).max())
