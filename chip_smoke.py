@@ -173,6 +173,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
            every frame tracks and the ATE is under a bar just above the
            JAX package's on the same frames with GS off
            (``JAX_REPLICA_TRACKED_ATE``).
+   The XLA rasterizer, 2DGS and the visualization: (m) ``arbiter``: on the
+           first kitti view (524,288 Gaussians, 600 tiles x 128 slots) the
+           CUDA forward (``blend_fwd`` + ``assemble_blend``) against the
+           ported XLA blend (``rasterize.blend_tiles_surfel`` /
+           ``blend_tiles``) on the same projected splats and table, in
+           surfel and 3DGS modes: rgb, alpha and normal within 1e-4 on
+           99.8% of the pixels (1e-2 on the rest: the kernels' early stop
+           at T <= 1e-4 and gate flips), depth and median depth by the
+           robust rule relative to max(depth, 1); in 3DGS mode the
+           contribution kernel against ``blend_tiles(with_contrib=True)``
+           at 2e-4 of the column's magnitude; both blends' ms and peak
+           memory. (n) ``2dgs serve``: ``render(gs_type="2d_gs")`` of the
+           4 kitti and 2 replica views on the card and on the CPU, held by
+           the robust rule; median depth and distortion finite; no kernel
+           launched; ms per view, the blend's ms and the peak memory. (o)
+           ``cli kitti 2dgs``: (a) in a copy of the configuration with
+           ``gs_type: 2d_gs`` and ``lambda_distortion: 0.01`` and
+           ``--vis-every 4``, ``control.json`` asking for the mesh and the
+           SDF slice before the first frame: every loss finite, no
+           skipped step, the distortion term finite and above 0, no kernel
+           launched, packets at frames 3, 7 and 11 with the rendered rgb
+           and depth, the mesh and the slice, all baked into
+           ``viewer.html``, the ATE over frames 0-5 under
+           ``CLI_2DGS_ATE_BAR``; ms per mapped frame and its stages, ms per
+           GS iteration, peak memory. (p) ``vis live``: ``python -m
+           pings_tpu_torch.vis.live`` on (o)'s run directory on a free
+           local port: ``GET /`` and ``GET /status`` (3 packets, the
+           latest 11) answer and a ``POST /control`` merges into
+           ``control.json``; the server is stopped.
 5. times   per-view ms and per-stage ms of ``render()``; ms per GS
            iteration (host clock with a synchronize, fresh and cached
            table) and per-stage ms (CUDA events recorded by the step's
@@ -622,8 +651,7 @@ def main_path(torch, rb, name, run_dir, T_c_l, K, W, H, pick,
         f"local {views[0][0].positions.shape[0]} points, launches "
         f"{launches}, view ms {[round(x, 3) for x in ms]}, median after "
         f"warm-up {statistics.median(ms[1:]):.3f} ms")
-    return launches[mode], statistics.median(ms[1:]), (cfg, system,
-                                                       views[0])
+    return launches[mode], statistics.median(ms[1:]), (cfg, system, views)
 
 
 def stages(torch, cfg, system, view, W, H, gs_type=None, reps=5):
@@ -1348,8 +1376,9 @@ def slam_loop(torch, rb, n=70, verbose=False, **kw):
 
 def recorded_system(torch, rb, base):
     """A subclass of the cli's ``SlamSystem`` that times each frame with a
-    synchronize on both sides and counts its kernel launches; the last
-    instance is ``.last``."""
+    synchronize on both sides and counts its kernel launches; ``gs_log``
+    holds each frame's GS iterations' (total loss, distortion term), read
+    after the frame's timing; the last instance is ``.last``."""
 
     class Recorded(base):
         last = None
@@ -1358,6 +1387,7 @@ def recorded_system(torch, rb, base):
             super().__init__(*a, **k)
             Recorded.last = self
             self.ms, self.launch_log, self.reports = [], [], []
+            self.gs_log = []
 
         def process_frame(self, frame):
             before = (sum(rb.LAUNCHES.values()),
@@ -1372,6 +1402,10 @@ def recorded_system(torch, rb, base):
                   sum(rb.CONTRIB_LAUNCHES.values()))
             self.launch_log.append([a - b for a, b in zip(n_, before)])
             self.reports.append(rep)
+            mets = [e[3] for e in self.gs_iter_log]
+            self.gs_log.append(torch.stack([torch.stack(
+                [m.total, torch.as_tensor(m.distortion, device=m.total.device)])
+                for m in mets]).cpu().numpy() if mets else np.zeros((0, 2)))
             return rep
 
     return Recorded
@@ -1484,6 +1518,387 @@ def cli_kitti(torch, rb):
                   torch.as_tensor(deltas.astype(np.float32), device="cuda"),
                   n // 2)
     return launches, run_dir, data
+
+
+def event_pair(torch):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    return a, b
+
+
+def close_rel(name, a, b, tol=1e-4, frac=2e-3, hard=5e-2):
+    """The robust rule on |a - b| / max(|b|, 1): depths up to 80 m."""
+    scale = b.abs().clamp_min(1.0)
+    return close_robust(name, a / scale, b / scale, tol, frac, hard)
+
+
+def arbiter(torch, rb, cfg, system, view, W, H, mode):
+    """The CUDA forward (``blend_fwd`` + ``assemble_blend``, as
+    ``rasterize_fused`` runs them) against the ported XLA blend
+    (``blend_tiles_surfel`` / ``blend_tiles``) on the same projected
+    splats and tile table of one view at full width; in 3DGS mode also
+    the contribution kernel against ``blend_tiles(with_contrib=True)``.
+    Returns (forward max abs err on rgb/alpha/normal, contribution err or
+    None)."""
+    from pings_tpu_torch.models.spawn import (
+        spawn_gaussians, spawn_kwargs_from_cfg)
+    from pings_tpu_torch.ops import rasterize as rz
+
+    local, cam = view
+    T_c_w, K = cam.T_c_w, cam.K
+    tile = cfg.tile_size
+    ntx, nty = (W + tile - 1) // tile, (H + tile - 1) // tile
+    bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=K.device)
+    with torch.no_grad():
+        vis = rz.mark_visible(local.positions, T_c_w, K, W, H)
+        g = spawn_gaussians(local, system.decoders,
+                            -T_c_w[:3, :3].T @ T_c_w[:3, 3], vis,
+                            **spawn_kwargs_from_cfg(cfg))
+        args = (g.means, g.quats, g.scales, g.alphas, g.colors, g.valid,
+                T_c_w, K, W, H)
+        if mode == "surfel":
+            ps = rz.project_surfels(*args)
+            base, attr16 = ps.base, rb.surfel_attr_matrix(ps, K)
+            xla = lambda: rz.blend_tiles_surfel(ps, bins, bg, K, W, H, tile,
+                                                chunk=32, mode="surfel")
+        else:
+            base = rz.project_gaussians(*args)
+            attr16 = rb.gauss_attr_matrix(base)
+            xla = lambda: rz.blend_tiles(base, bins, bg, W, H, tile,
+                                         chunk=32, with_contrib=True)
+        bins = rz.bin_gaussians(base, W, H, tile=tile,
+                                max_per_tile=cfg.max_gs_per_tile)
+
+        def fused():
+            out, trans, med = rb.blend_fwd(attr16, bins, ntx, nty, tile,
+                                           mode)
+            return rb.assemble_blend(out, trans, med, bg, W, H, tile, mode,
+                                     True)
+
+        ms = {}
+        for name, fn in (("kernel", fused), ("xla", xla)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                a, b = event_pair(torch)
+                a.record()
+                res = fn()
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
+            ms[name] = (statistics.median(times),
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+            if name == "kernel":
+                rgb, depth, alpha, normal, dmed = res
+            else:
+                xo = res
+        err = 0.0
+        for f, got in (("rgb", rgb), ("alpha", alpha), ("normal", normal)):
+            err = max(err, close_robust(f"arbiter {mode} {f}", got,
+                                        getattr(xo, f), 1e-4,
+                                        hard_atol=1e-2))
+        close_rel(f"arbiter {mode} depth", depth, xo.depth)
+        if mode == "surfel":
+            close_rel(f"arbiter {mode} median depth", dmed, xo.depth_median)
+        c_err = None
+        if mode == "3dgs":
+            c = rb.blend_contrib(attr16, bins, ntx, nty, tile, mode)
+            c_err = scaled_err("arbiter 3dgs contributions", c[:, None],
+                               xo.contrib[:, None])[0]
+    log(f"arbiter {mode}: {g.means.shape[0]} Gaussians, {W}x{H}, "
+        f"{bins.counts.shape[0]} tiles x {bins.gauss_tbl.shape[1]} slots; "
+        f"CUDA forward vs ported XLA blend: rgb/alpha/normal max abs "
+        f"{err:.3e} (1e-4 on 99.8% of the pixels), depth"
+        f"{' and median depth' if mode == 'surfel' else ''} by the robust "
+        "rule" + ("" if c_err is None else
+                  f"; contributions max abs {c_err:.3e} (2e-4 of the "
+                  "column)") + f"; blend ms (CUDA events, median of 3): "
+        f"kernel + assemble {ms['kernel'][0]:.3f}, XLA blend "
+        f"{ms['xla'][0]:.3f}; peak GiB {ms['kernel'][1]:.3f} / "
+        f"{ms['xla'][1]:.3f}")
+    return err, c_err
+
+
+def serve_2dgs(torch, rb, name, cfg, system, views, W, H):
+    """``render(gs_type="2d_gs")`` of the views on the card and on the
+    CPU: the robust rule between the two; the median depth and the
+    distortion finite; no CUDA kernel launched. Prints ms per view (host
+    clock with a synchronize), the blend's ms (CUDA events between the
+    "bin" and "blend" stages) and the peak device memory."""
+    from pings_tpu_torch.models.renderer import render
+
+    kw = render_kw(cfg, "2d_gs")
+    ms, blend, peak, cpu_s = [], [], [], []
+    rb.reset_launches()
+    for local, cam in views:
+        marks = {}
+
+        def hook(stage, **_):
+            if stage in ("bin", "blend"):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks[stage] = ev
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = render(local, system.decoders, cam, W, H, stage_hook=hook, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        blend.append(marks["bin"].elapsed_time(marks["blend"]))
+        peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        t0 = time.perf_counter()
+        c = render(local, system.decoders, cam, W, H,
+                   **dict(kw, device="cpu"))
+        cpu_s.append(time.perf_counter() - t0)
+        for f in ("rgb", "alpha", "normal"):
+            close_robust(f"2dgs {name} {f}", getattr(r, f).cpu(),
+                         getattr(c, f), 1e-4, hard_atol=1e-2)
+        for f in ("depth", "depth_median"):
+            close_rel(f"2dgs {name} {f}", getattr(r, f).cpu(), getattr(c, f))
+        close_robust(f"2dgs {name} distortion", r.distortion.cpu(),
+                     c.distortion, 1e-5, hard_atol=1e-3)
+        if not (torch.isfinite(r.depth_median).all()
+                and torch.isfinite(r.distortion).all()
+                and torch.isfinite(r.rgb).all()):
+            raise AssertionError(f"2dgs {name}: non-finite output")
+        a = float(r.alpha.mean())
+        if tuple(r.rgb.shape) != (H, W, 3) or not a > 0.2:
+            raise AssertionError(f"2dgs {name}: rgb {tuple(r.rgb.shape)}, "
+                                 f"mean alpha {a}")
+    launches = (dict(rb.LAUNCHES), dict(rb.BWD_LAUNCHES),
+                dict(rb.CONTRIB_LAUNCHES))
+    if any(v for d in launches for v in d.values()):
+        raise AssertionError(f"2dgs {name}: CUDA kernels launched "
+                             f"{launches}")
+    log(f"2dgs serve {name}: {len(views)} views {W}x{H}, "
+        f"{r.gaussians.means.shape[0]} Gaussians/view; card = CPU by the "
+        f"robust rule; view ms {[round(x, 3) for x in ms]} (median after "
+        f"warm-up {statistics.median(ms[1:]):.3f}); blend ms "
+        f"{[round(x, 3) for x in blend]}; peak device memory GiB "
+        f"{[round(x, 3) for x in peak]}; CPU s per view "
+        f"{[round(x, 2) for x in cpu_s]}; mean distortion "
+        f"{float(r.distortion.mean()):.3e}; no kernel launched")
+    return statistics.median(ms[1:]), statistics.median(blend[1:]), \
+        max(peak)
+
+
+def render_grad_ms(torch, cfg, system, view, W, H, reps=4):
+    """ms of ``render()`` forward and of a loss's backward to the local
+    features on one view, in surfel and 2DGS mode (CUDA events, median
+    after a warm-up; the blend's forward from the "bin" and "blend" or
+    "blend_kernel" stage hooks), and the peak device memory: what the
+    2DGS blend's torch ops cost against the kernels on the same view."""
+    from pings_tpu_torch.models.renderer import render
+
+    local, cam = view
+    out = {}
+    for gs_type in ("gaussian_surfel", "2d_gs"):
+        kw = render_kw(cfg, gs_type)
+        fwd, bwd, blend = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(reps):
+            feat = local.geo_feat.detach().clone().requires_grad_(True)
+            marks = {}
+
+            def hook(stage, **_):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks[stage] = ev
+
+            a, b = event_pair(torch)
+            c = torch.cuda.Event(enable_timing=True)
+            a.record()
+            r = render(local._replace(geo_feat=feat), system.decoders, cam,
+                       W, H, stage_hook=hook, **kw)
+            b.record()
+            (r.rgb.mean() + 1e-3 * r.depth.mean()).backward()
+            c.record()
+            torch.cuda.synchronize()
+            fwd.append(a.elapsed_time(b))
+            bwd.append(b.elapsed_time(c))
+            blend.append(marks["bin"].elapsed_time(
+                marks["blend" if gs_type == "2d_gs" else "blend_kernel"]))
+            if not torch.isfinite(feat.grad).all():
+                raise AssertionError(f"render_grad {gs_type}: non-finite "
+                                     "gradient")
+        out[gs_type] = (statistics.median(fwd[1:]),
+                        statistics.median(blend[1:]),
+                        statistics.median(bwd[1:]),
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("render forward / blend / backward ms and peak GiB, first kitti "
+        "view (CUDA events, median of 3 after a warm-up): " + "; ".join(
+            f"{k} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f}, {v[3]:.3f} GiB"
+            for k, v in out.items()))
+    return out
+
+
+# The JAX package on a CPU, configs/kitti_synth.yaml with gs_type 2d_gs and
+# lambda_distortion 0.01, the ATE over frames 0-5 at seeds 42, 0 and 1
+# (scripts/slam_kitti_seeds.py --package jax --seeds 42,0,1 --set
+# gs_type=2d_gs --set lambda_distortion=0.01): 0.1007, 0.1684 and 0.2516 m,
+# inside the cli kitti bar, which is kept
+JAX_2DGS_ATE = (0.1007, 0.2516)
+CLI_2DGS_ATE_BAR = 0.28
+
+
+def cli_kitti_2dgs(torch, rb, data, n=12):
+    """The command line on (a)'s kitti frames with ``gs_type: 2d_gs`` and
+    ``lambda_distortion: 0.01`` in a copy of the configuration and
+    ``--vis-every 4``, with ``control.json`` asking for the mesh and the
+    SDF slice before the first frame. Returns the run directory."""
+    import tempfile
+
+    from pings_tpu_torch import cli
+    from pings_tpu_torch.data.base import dataset_factory
+    from pings_tpu_torch.eval.traj import absolute_error
+    from pings_tpu_torch.vis.packet import load_packets
+
+    tmp = tempfile.mkdtemp(prefix="pings_2dgs_")
+    cfg_file = derived_config("kitti_synth", tmp, gs={
+        "gs_type": "2d_gs", "lambda_distortion": 0.01})
+    layers = {"mesh_on": True, "sdf_slice_on": True}
+
+    class Primed(cli.ControlLoop):
+        """control.json written before the loop's first poll."""
+
+        def __init__(self, run_dir, *a, **k):
+            with open(os.path.join(run_dir, "control.json"), "w") as f:
+                json.dump(layers, f)
+            super().__init__(run_dir, *a, **k)
+
+    cli.ControlLoop = Primed
+    try:
+        system, launches, mem, wall, run_dir = cli_run(
+            torch, rb, [cfg_file, "--data-path", data, "--range", "0",
+                        str(n), "1", "--vis-every", "4"])
+    finally:
+        cli.ControlLoop = Primed.__mro__[1]
+    reps, ms = system.reports, system.ms
+    log_frames("cli kitti 2dgs", system)
+    gs = [(r.frame_id, g) for r, g in zip(reps, system.gs_log)
+          if r.metrics.get("gs_iters")]
+    per_it = [r.timings["training"] * 1e3 / r.metrics["gs_iters"]
+              for r in reps[1:] if r.metrics.get("gs_iters")] or [np.nan]
+    stage = {k: statistics.median(r.timings[k] * 1e3 for r in reps[1:])
+             for k in reps[1].timings}
+    dist = np.concatenate([g[:, 1] for _, g in gs]) if gs else np.zeros(0)
+    tot = np.concatenate([g[:, 0] for _, g in gs]) if gs else np.zeros(0)
+    gt = dataset_factory("kitti", data, "00", system.cfg).gt_poses()
+    k = min(6, len(system.poses))
+    ate = absolute_error(system.poses[:k], gt[:k], align=False)
+    pkts = load_packets(os.path.join(run_dir, "vis"))
+    with open(os.path.join(run_dir, "viewer.html")) as f:
+        html = f.read()
+    start = html.index("const PACKETS = ") + len("const PACKETS = ")
+    baked = json.loads(html[start:html.index(";\nconst LAYERS")])
+    log(f"cli kitti 2dgs: {len(reps)} frames in {wall:.1f} s; median ms per "
+        f"mapped frame (frames 1-{n - 1}) {statistics.median(ms[1:]):.1f}; "
+        f"frame 0 {ms[0]:.1f} ms; median stage ms "
+        + ", ".join(f"{k}={v:.2f}" for k, v in stage.items())
+        + f"; training ms per GS iteration (median over frames) "
+        f"{statistics.median(per_it):.2f}; {len(tot)} GS iterations, "
+        f"distortion term min {dist.min():.4e} max {dist.max():.4e}; ATE "
+        f"frames 0-{k - 1} {ate['ate_trans_rmse_m']:.4f} m "
+        f"{ate['ate_rot_rmse_deg']:.4f} deg (bar {CLI_2DGS_ATE_BAR}; JAX "
+        f"{JAX_2DGS_ATE}); peak device memory {mem:.3f} GiB; launches "
+        f"{launches}; packets at {[p.frame_id for p in pkts]} with "
+        f"{[sorted(k for k, v in vars(p).items() if v is not None and k != 'images') + sorted(p.images) for p in pkts[-1:]]}; "
+        f"viewer.html {len(html)} bytes; card {smi('name,power.limit')}")
+    lost = [r.frame_id for r in reps[1:] if not r.tracking_valid]
+    bad = [r.frame_id for r in reps if "gs_nonfinite_steps" in r.metrics]
+    if lost or bad or not len(tot) or not np.isfinite(tot).all():
+        raise AssertionError(f"cli kitti 2dgs: lost {lost}, skipped steps "
+                             f"at {bad}, losses finite "
+                             f"{bool(np.isfinite(tot).all())}")
+    if not (len(dist) and np.isfinite(dist).all() and dist.min() > 0):
+        raise AssertionError(f"cli kitti 2dgs: distortion term {dist}")
+    if any(v for m in launches.values() for v in m):
+        raise AssertionError(f"cli kitti 2dgs: CUDA kernels launched "
+                             f"{launches}")
+    want = list(range(3, n, 4))
+    if [p.frame_id for p in pkts] != want:
+        raise AssertionError(f"cli kitti 2dgs: packets at "
+                             f"{[p.frame_id for p in pkts]}, want {want}")
+    for p, b in zip(pkts, baked):
+        if (sorted(p.images) != ["render_depth", "render_rgb", "target_rgb"]
+                or p.mesh_verts is None or not len(p.mesh_verts)
+                or p.sdf_slice is None
+                or not np.isfinite(p.sdf_slice).any()):
+            raise AssertionError(f"cli kitti 2dgs: packet {p.frame_id} "
+                                 f"lacks a layer ({sorted(p.images)})")
+        if (b["frame_id"] != p.frame_id or "mesh" not in b or "sdf" not in b
+                or sorted(b["images"]) != sorted(p.images)):
+            raise AssertionError(f"cli kitti 2dgs: viewer.html lacks a "
+                                 f"layer of frame {p.frame_id}")
+    if len(baked) != len(pkts):
+        raise AssertionError("cli kitti 2dgs: viewer.html has "
+                             f"{len(baked)} frames")
+    if not (ate["ate_trans_rmse_m"] < CLI_2DGS_ATE_BAR
+            and ate["ate_rot_rmse_deg"] < 1.0):
+        raise AssertionError(f"cli kitti 2dgs: ATE {ate}")
+    return run_dir, want
+
+
+def vis_live(torch, run_dir, frame_ids):
+    """``python -m pings_tpu_torch.vis.live`` on the 2DGS run directory,
+    on a free local port: ``GET /`` and ``GET /status`` answer (as many
+    packets as ``frame_ids``, the last the latest), a ``POST /control``
+    merges into control.json; the server is stopped after."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pings_tpu_torch.vis.live", run_dir,
+         "--port", str(port)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    get = lambda path: urllib.request.urlopen(url + path, timeout=60).read()
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                st = json.loads(get("/status"))
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 60:
+                    raise AssertionError(
+                        "vis live: the server did not answer: "
+                        + proc.stdout.read().decode(errors="replace"))
+                time.sleep(0.2)
+        t_up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        page = get("/")
+        t_page = time.perf_counter() - t0
+        req = urllib.request.Request(
+            url + "/control", data=json.dumps({"render_on": False}).encode(),
+            method="POST")
+        merged = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        with open(os.path.join(run_dir, "control.json")) as f:
+            ctl = json.load(f)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=20)
+    log(f"vis live: up in {t_up:.2f} s on port {port}; /status {st}; GET / "
+        f"{len(page)} bytes in {t_page * 1e3:.1f} ms; control.json after "
+        f"POST {ctl}")
+    if st["n_packets"] != len(frame_ids) or st["latest"] != frame_ids[-1]:
+        raise AssertionError(f"vis live: /status {st}")
+    if b"ctrlpanel" not in page or b"render_rgb" not in page:
+        raise AssertionError("vis live: GET / lacks the panel or a render")
+    if not (ctl == merged and ctl.get("render_on") is False
+            and ctl.get("mesh_on") and ctl.get("sdf_slice_on")):
+        raise AssertionError(f"vis live: control.json {ctl}")
 
 
 # The JAX package's numbers on the committed replica map over the 60 PNG
@@ -2407,16 +2822,29 @@ def main():
     # kitti views along the lap (its first frames hold few live splats);
     # replica views over the whole orbit
     pick_k = np.linspace(40, 200, 4).round().astype(int)
-    n_k, ms_k, (cfg_k, sys_k, view_k) = main_path(
+    n_k, ms_k, (cfg_k, sys_k, views_k) = main_path(
         torch, rb, "kitti", KITTI, T_c_l_kitti, K_kitti, 640, 240, pick_k)
-    n_r, ms_r, (cfg_r, sys_r, view_r) = main_path(
+    n_r, ms_r, (cfg_r, sys_r, views_r) = main_path(
         torch, rb, "replica", REPLICA, np.eye(4), K_rep, 1200, 680, [0, 55])
-    n_3, ms_3, (_, sys_k3, view_k3) = main_path(
+    n_3, ms_3, (_, sys_k3, views_k3) = main_path(
         torch, rb, "kitti 3d_gs", KITTI, T_c_l_kitti, K_kitti, 640, 240,
         pick_k[::3], gs_type="3d_gs")
+    view_k, view_r, view_k3 = views_k[0], views_r[0], views_k3[0]
     launches = {("fwd", "surfel"): n_k + n_r, ("fwd", "3dgs"): n_3}
     log(f"per-view ms (median after warm-up): kitti {ms_k:.3f}, "
         f"replica {ms_r:.3f}, kitti 3d_gs {ms_3:.3f}")
+    # the ported XLA blend, an implementation independent of the kernels,
+    # holds the forward and contribution kernels on the first kitti view
+    for mode in ("surfel", "3dgs"):
+        arbiter(torch, rb, cfg_k, sys_k, view_k, 640, 240, mode)
+    # 2DGS serving: torch ops on the card against the CPU, no kernel
+    s2_k = serve_2dgs(torch, rb, "kitti", cfg_k, sys_k, views_k, 640, 240)
+    s2_r = serve_2dgs(torch, rb, "replica", cfg_r, sys_r, views_r, 1200,
+                      680)
+    log(f"2dgs per-view ms, blend ms, peak GiB: kitti {s2_k}, replica "
+        f"{s2_r}; surfel per-view ms in this call: kitti {ms_k:.3f}, "
+        f"replica {ms_r:.3f}")
+    render_grad_ms(torch, cfg_k, sys_k, view_k, 640, 240)
 
     # training: frames 112-121 (115 and 120 are held out of the keyframes)
     t0 = time.perf_counter()
@@ -2445,6 +2873,10 @@ def main():
     # with the pose graph on, loop closure on a small circuit, the small
     # LiDAR-only and GS-SLAM runs
     l_k, kitti_run, kitti_data = cli_kitti(torch, rb)
+    # the same frames in 2DGS mode with the distortion loss and vis
+    # packets, then the live viewer on that run
+    run_2dgs, vis_ids = cli_kitti_2dgs(torch, rb, kitti_data)
+    vis_live(torch, run_2dgs, vis_ids)
     # the LiDAR options on kitti (deskew, dynamic filter, semantics) and
     # the same skewed scans from a bag
     l_o, opt_poses, opt_seq = kitti_options(torch, rb, kitti_data)

@@ -19,8 +19,13 @@ keyframes' depth maps fused into a TSDF) when ``save_tsdf_mesh`` and
 ``mesh.ply`` (the neural SDF's mesh) with ``--save-mesh`` or
 ``save_mesh`` (:160-189).
 
-Not ported yet, and refused: ``--vis-every`` (and a ``vis_every`` set in
-``control.json``).
+``--vis-every N`` (or ``vis_every`` in ``control.json``, which the frame
+loop polls) saves a ``VisPacket`` every N frames and at the last frame into
+``vis/frame_XXXXX.npz``, with the layers ``control.json`` asks for
+(``mesh_on``, ``sdf_slice_on``, ``render_on``; ``_control_layers``,
+:196-227), and bakes them into ``viewer.html`` at the end of the run.
+``python -m pings_tpu_torch.vis.live RUN_DIR`` serves the packets and
+writes ``control.json`` while the run goes on.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from pings_tpu_torch.slam.mesher import Mesher, write_ply
 from pings_tpu_torch.slam.pipeline import SlamSystem
 from pings_tpu_torch.slam.tsdf import fuse_run
 from pings_tpu_torch.vis.control import ControlLoop
+from pings_tpu_torch.vis.viewer import write_viewer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,16 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--vis-every", type=int, default=0, metavar="N",
-                   help="not yet ported: raises when N > 0")
+                   help="save a VisPacket every N frames and bake a "
+                        "standalone WebGL viewer.html at the end")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     return p
-
-
-def _unported_vis(n) -> None:
-    if n:
-        raise NotImplementedError("vis packets (--vis-every, vis_every in "
-                                  "control.json) are not yet ported")
 
 
 def run(args) -> dict:
@@ -105,7 +106,6 @@ def run(args) -> dict:
     if args.quiet:
         overrides["silence"] = True
     cfg = Config.load(args.config, overrides)
-    _unported_vis(args.vis_every)
 
     ds = dataset_factory(cfg.data_loader_name, cfg.pc_path,
                          cfg.data_loader_seq, cfg)
@@ -138,6 +138,7 @@ def run(args) -> dict:
 
     gt = ds.gt_poses()
     reports = []
+    packets = []
     # live control: <run_dir>/control.json is polled every frame
     ctrl = ControlLoop(run_dir)
     t_start = time.time()
@@ -147,9 +148,20 @@ def run(args) -> dict:
         st = ctrl.poll()
         if st.get("stop"):
             break
-        _unported_vis(st.get("vis_every"))
         rep = system.process_frame(ds[fid])
         reports.append(rep)
+        vis_every = (int(st["vis_every"]) if st.get("vis_every")
+                     is not None else args.vis_every)
+        if vis_every and (len(reports) % vis_every == 0
+                          or fid + step >= end):
+            pkt = system.make_vis_packet(
+                gt_poses=gt,
+                with_render=bool(cfg.gs_on) and bool(
+                    st.get("render_on", True)))
+            _control_layers(pkt, st, system, cfg)
+            pkt.save(os.path.join(run_dir, "vis",
+                                  f"frame_{rep.frame_id:05d}.npz"))
+            packets.append(pkt)
         if not cfg.silence:
             mets = " ".join(f"{k}={v:.3f}" for k, v in rep.metrics.items())
             print(f"[frame {rep.frame_id:4d}] pts={rep.n_points} "
@@ -163,6 +175,9 @@ def run(args) -> dict:
     wall = time.time() - t_start
 
     results = write_results(run_dir, cfg, system, ds, reports, gt, wall)
+    if packets:
+        results["viewer"] = write_viewer(
+            os.path.join(run_dir, "viewer.html"), packets)
     if cfg.save_map:
         system.save(os.path.join(run_dir, "model", "pin_map.npz"))
     if cfg.save_merged_pc:
@@ -187,6 +202,37 @@ def run(args) -> dict:
     if not cfg.silence:
         print(json.dumps(results, indent=2, default=float))
     return results
+
+
+def _control_layers(pkt, st: dict, system, cfg):
+    """The vis-packet layers ``control.json`` asks for: a mesh of the SDF
+    in a box around the sensor (``mesh_on``) and a horizontal SDF slice
+    through it (``sdf_slice_on``, at ``sdf_slice_height`` above the
+    sensor). A failure leaves the layer out and prints why on stderr; the
+    run goes on."""
+    if not (st.get("mesh_on") or st.get("sdf_slice_on")):
+        return
+    mesher = Mesher(cfg, system.device)
+    pos = system.poses[-1][:3, 3] if system.poses else np.zeros(3)
+    r = min(0.25 * cfg.local_map_radius, 10.0)
+    try:
+        if st.get("mesh_on"):
+            v, t, c = mesher.recon_aabb_mesh(
+                system.m, system.decoders, pos - r, pos + r)
+            pkt.mesh_verts, pkt.mesh_tris, pkt.mesh_colors = v, t, c
+        if st.get("sdf_slice_on"):
+            z = pos[2] + float(st.get("sdf_slice_height") or 0.0)
+            res = max(cfg.mc_res_m, 2.0 * cfg.voxel_size_m)
+            n = int(2 * r / res)
+            origin = np.array([pos[0] - r, pos[1] - r, z])
+            sdf, mask = mesher.query_sdf_grid(
+                system.m, system.decoders, origin, (n, n, 1), res)
+            pkt.sdf_slice = np.where(mask[:, :, 0], sdf[:, :, 0],
+                                     np.nan).astype(np.float32)
+            pkt.sdf_slice_meta = np.array(
+                [origin[0], origin[1], z, res], np.float32)
+    except Exception as e:   # vis layers are best-effort
+        print(f"vis layers: {e!r}", file=sys.stderr, flush=True)
 
 
 def write_results(run_dir, cfg, system, ds, reports, gt, wall) -> dict:

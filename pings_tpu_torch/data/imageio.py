@@ -9,7 +9,8 @@ PNG (gray is repeated into three channels, alpha is dropped), and
 cv2.IMREAD_UNCHANGED)`` does but in RGB order. Non-interlaced PNGs of bit
 depth 8 (gray, RGB, RGBA) and 16-bit gray are read, with all five row
 filters; any other PNG raises ``ValueError``. ``write_png`` writes the
-same kinds, with one chosen filter for every row.
+same kinds, with one chosen filter for every row (``encode_png`` gives
+its bytes).
 """
 
 from __future__ import annotations
@@ -148,6 +149,13 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 0,
               level: int = 6) -> None:
     """Write (H, W) uint8/uint16 gray, (H, W, 3) uint8 RGB or (H, W, 4)
     uint8 RGBA as a PNG, every row with ``filter_type`` (0-4)."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img, filter_type, level))
+
+
+def encode_png(img: np.ndarray, filter_type: int = 0,
+               level: int = 6) -> bytes:
+    """The bytes of the PNG that ``write_png`` writes."""
     img = np.asarray(img)
     h, w = img.shape[:2]
     ch = 1 if img.ndim == 2 else img.shape[2]
@@ -171,9 +179,8 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 0,
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
-                                           0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(data, level)))
-        f.write(chunk(b"IEND", b""))
+    return (_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, 0))
+            + chunk(b"IDAT", zlib.compress(data, level))
+            + chunk(b"IEND", b""))

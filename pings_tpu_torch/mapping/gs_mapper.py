@@ -58,6 +58,9 @@ class GsStepMetrics(NamedTuple):
     nonfinite: torch.Tensor | bool = False
     # max |delta means2d| px since the reused tile table was built
     bin_drift: torch.Tensor | float = 0.0
+    # the 2DGS depth-distortion term before its weight (0 unless
+    # lambda_distortion > 0 in 2DGS mode)
+    distortion: torch.Tensor | float = 0.0
 
 
 def gs_param_labels() -> Dict[str, str]:
@@ -241,7 +244,7 @@ def make_cam_loss(cfg, width: int, height: int):
             surrounding=surrounding,
             spawn_kwargs=spawn_kwargs,
             tile=cfg.tile_size, max_per_tile=cfg.max_gs_per_tile,
-            gs_type=cfg.gs_type, precision=cfg.raster_precision,
+            chunk=32, gs_type=cfg.gs_type, precision=cfg.raster_precision,
             with_contrib=not use_bins,
             raster_bins=bins if use_bins else None,
             return_bins=True,
@@ -295,7 +298,9 @@ def make_cam_loss(cfg, width: int, height: int):
         # Gaussian-SDF consistency on the S visible Gaussians with the
         # highest blend contribution among those with alpha above
         # gs_min_alpha and contribution above the threshold: centres on
-        # the zero level set, SDF gradients along their normals
+        # the zero level set, SDF gradients along their normals. The 2DGS
+        # blend gives zero contributions, so no Gaussian qualifies there
+        # and both terms are 0, as in the JAX package
         g = res.gaussians
         qualify = (g.valid & (g.alphas > cfg.gs_min_alpha)
                    & (contrib > cfg.gs_contribution_threshold))
@@ -326,7 +331,13 @@ def make_cam_loss(cfg, width: int, height: int):
         area = losses.area_loss(g.scales, gvalid, cfg.voxel_size_m,
                                 n_dims=scale_dims) \
             if cfg.lambda_area > 0 else zero
-        # the 2DGS depth-distortion term comes with the 2DGS mode
+        # 2DGS depth distortion: the mean over non-sky pixels
+        if cfg.lambda_distortion > 0 and res.distortion is not None:
+            nonsky = 1.0 - cam.sky
+            distort = torch.sum(res.distortion * nonsky) / torch.clamp_min(
+                torch.sum(nonsky), 1.0)
+        else:
+            distort = zero
 
         cam_total = (
             photo
@@ -340,9 +351,10 @@ def make_cam_loss(cfg, width: int, height: int):
             + cfg.lambda_gs_sdf_normal_consist * gs_nrm
             + cfg.lambda_isotropic * iso
             + cfg.lambda_area * area
+            + cfg.lambda_distortion * distort
         )
         aux = dict(l1=l1, ds=ds, dl1=dl1, ncons=ncons, oent=oent,
-                   sky_l=sky_l, gs_sdf=gs_sdf,
+                   sky_l=sky_l, gs_sdf=gs_sdf, distort=distort,
                    psnr=losses.psnr(res.rgb, cam.rgb),
                    n_overflow=res.n_overflow)
         return cam_total, aux, (bins_out, means2d, res.contrib)
@@ -396,7 +408,8 @@ def metrics_from_terms(total, aux, bce) -> GsStepMetrics:
         depth_l1=d(aux["dl1"]), normal=d(aux["ncons"]),
         opacity_ent=d(aux["oent"]), sky=d(aux["sky_l"]),
         gs_sdf=d(aux["gs_sdf"]), sdf_bce=d(bce), psnr=d(aux["psnr"]),
-        n_overflow=aux["n_overflow"], bin_drift=0.0)
+        n_overflow=aux["n_overflow"], bin_drift=0.0,
+        distortion=d(aux["distort"]))
 
 
 def make_gsdf_step(cfg, optimizer: AdamW, width: int, height: int,

@@ -6,8 +6,10 @@ Gaussians from each, append optional frozen surrounding Gaussians,
 rasterize with an optional camera pose delta, then apply the exposure
 correction.
 
-The blend runs where the tensors live: on CUDA tensors the kernels of
-``ops/csrc/``, on CPU tensors their plain PyTorch versions. ``render``
+The 3DGS and surfel blends run where the tensors live: on CUDA tensors the
+kernels of ``ops/csrc/``, on CPU tensors their plain PyTorch versions. The
+2DGS mode runs ``ops/rasterize.rasterize`` (torch ops) on every device, as
+the JAX package runs its XLA rasterizer on every backend. ``render``
 moves its inputs to ``device`` first (a tensor already there is used as
 it is, so trainable leaves stay the leaves the optimizer holds); the
 default ``"cuda"`` raises when no card is present. It is differentiable
@@ -58,7 +60,8 @@ class RenderResult(NamedTuple):
     contrib: torch.Tensor      # per spawned gaussian (local part only)
     gaussians: SpawnedGaussians
     n_overflow: torch.Tensor
-    depth_median: Optional[torch.Tensor] = None  # surfel mode
+    depth_median: Optional[torch.Tensor] = None  # surfel/2DGS modes
+    distortion: Optional[torch.Tensor] = None    # 2DGS mode
 
 
 def downsample_cam(cam: CamView, level: int) -> CamView:
@@ -147,6 +150,7 @@ def render(
     spawn_kwargs: Optional[dict] = None,
     tile: int = 16,
     max_per_tile: int = 512,
+    chunk: int = 32,
     normalize_depth: bool = True,
     gs_type: str = "3d_gs",
     precision: str = "high",
@@ -160,21 +164,22 @@ def render(
 ):
     """Spawn + rasterize + exposure.
 
-    ``gs_type``: "3d_gs" or "gaussian_surfel"; "2d_gs" is not ported yet.
-    ``precision`` is accepted for call compatibility and has no effect:
-    the port always blends in float32 (the JAX package's "fast" is a TPU
-    bf16 matmul mode). ``with_contrib`` fills ``contrib``. ``raster_bins``
-    reuses a tile table; with ``bin_means`` and ``rebin_drift_px`` > 0 the
-    table is rebuilt when the projected centres have drifted past the
-    threshold; ``return_bins=True`` also returns (bins, the centres they
-    were built from). ``stage_hook`` is called after each stage of the
-    path (``raster_blend.StageHook``)."""
+    ``gs_type``: "3d_gs", "gaussian_surfel" (the fused blend) or "2d_gs"
+    (ray-disc intersection with the median depth and the distortion map,
+    through ``rz.rasterize`` in ``chunk``-slot steps; its contributions are
+    zeros). ``precision`` is accepted for call compatibility and has no
+    effect: the port always blends in float32 (the JAX package's "fast" is
+    a TPU bf16 matmul mode). ``with_contrib`` fills ``contrib`` (3DGS and
+    surfel). ``raster_bins`` reuses a tile table; with ``bin_means`` and
+    ``rebin_drift_px`` > 0 the table is rebuilt when the projected centres
+    have drifted past the threshold; ``return_bins=True`` also returns
+    (bins, the centres they were built from), both None in 2DGS mode, which
+    bins afresh on every call and reuses nothing. ``stage_hook`` is called
+    after each stage of the path (``raster_blend.StageHook``)."""
     del precision
     mode = _MODES.get(gs_type)
     if mode is None:
         raise ValueError(f"unknown gs_type {gs_type!r}")
-    if mode == "2dgs":
-        raise NotImplementedError("2d_gs not yet ported")
     dev = resolve_device(device)
     local = LocalPointData(*(x.to(dev) for x in local))
     decoders = decoders_to(decoders, dev)
@@ -204,14 +209,22 @@ def render(
         means, quats, scales = g.means, g.quats, g.scales
         alphas, colors, valid = g.alphas, g.colors, g.valid
 
-    r = rb.rasterize_fused(
-        means, quats, scales, alphas, colors, valid, T_c_w, K, width,
-        height, bg=bg, tile=tile, max_per_tile=max_per_tile,
-        normalize_depth=normalize_depth, mode=mode,
-        with_contrib=with_contrib, bins=raster_bins,
-        return_bins=return_bins, bin_means=bin_means,
-        rebin_drift_px=rebin_drift_px, stage_hook=stage_hook)
-    out, bins_out, means2d = r if return_bins else (r, None, None)
+    if mode == "2dgs":
+        out = rz.rasterize(
+            means, quats, scales, alphas, colors, valid, T_c_w, K, width,
+            height, bg=bg, tile=tile, max_per_tile=max_per_tile,
+            chunk=chunk, normalize_depth=normalize_depth, mode=mode,
+            stage_hook=stage_hook)
+        bins_out = means2d = None
+    else:
+        r = rb.rasterize_fused(
+            means, quats, scales, alphas, colors, valid, T_c_w, K, width,
+            height, bg=bg, tile=tile, max_per_tile=max_per_tile,
+            normalize_depth=normalize_depth, mode=mode,
+            with_contrib=with_contrib, bins=raster_bins,
+            return_bins=return_bins, bin_means=bin_means,
+            rebin_drift_px=rebin_drift_px, stage_hook=stage_hook)
+        out, bins_out, means2d = r if return_bins else (r, None, None)
     rgb = out.rgb
     if exposure is not None:
         rgb = apply_exposure(rgb, ExposureParams(*(x.to(dev)
@@ -220,7 +233,8 @@ def render(
     res = RenderResult(
         rgb=rgb, depth=out.depth, alpha=out.alpha, normal=out.normal,
         contrib=out.contrib[:g.means.shape[0]], gaussians=g,
-        n_overflow=out.n_overflow, depth_median=out.depth_median)
+        n_overflow=out.n_overflow, depth_median=out.depth_median,
+        distortion=out.distortion)
     if return_bins:
         return res, bins_out, means2d
     return res

@@ -44,7 +44,8 @@ import torch
 from pings_tpu_torch.ops import _build
 from pings_tpu_torch.ops.rasterize import (
     ProjectedGaussians, ProjectedSurfels, RenderOutput, TileBins,
-    apply_pose_delta, bin_gaussians, project_gaussians, project_surfels)
+    apply_pose_delta, bin_gaussians, project_gaussians, project_surfels,
+    tile_pixels)
 
 SUPER = 256        # default superblock: the early-stop check interval
 NCH = 16
@@ -68,9 +69,10 @@ _ND_COLS = (12, 13, 14)
 # Called as hook(stage, **tensors) when a stage of the render path has
 # been issued ("begin", "mark_visible", "spawn", "project", "bin",
 # "blend_kernel", "assemble" and, when contributions are asked for,
-# "contrib"), with the tensors a profiler may want (attr16 after
-# "project", bins after "bin"). Used to time the stages with CUDA events;
-# it does nothing unless a caller passes one.
+# "contrib"; the 2DGS path's "project", "bin" and "blend" come from
+# ``rasterize.rasterize``), with the tensors a profiler may want (attr16
+# after the fused path's "project", bins after "bin"). Used to time the
+# stages with CUDA events; it does nothing unless a caller passes one.
 StageHook = Callable[..., None]
 
 
@@ -405,15 +407,6 @@ def warp_culled(rows: torch.Tensor, mode: str, wx0, wx1, wy0,
     return ok & ((qc < 0) | off)
 
 
-def _pixel_grid(T: int, ntx: int, tile: int, dev):
-    """Global pixel centres of every tile: two (T, P) tensors."""
-    lane = torch.arange(tile * tile, device=dev)
-    t_idx = torch.arange(T, device=dev)
-    px = ((t_idx[:, None] % ntx) * tile + lane[None, :] % tile).float() + 0.5
-    py = ((t_idx[:, None] // ntx) * tile + lane[None, :] // tile).float() + 0.5
-    return px, py
-
-
 def blend_fwd_ref(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
                   tile: int, mode: str, sup: int = SUPER):
     """The plain PyTorch version of ``blend_fwd``: the same front-to-back
@@ -426,7 +419,7 @@ def blend_fwd_ref(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
     sb = superblock(kmax, sup)
     P = tile * tile
     n = attr16.shape[0]
-    px, py = _pixel_grid(T, ntx, tile, dev)
+    px, py = tile_pixels(T, ntx, tile, dev)
     counts = bins.counts.long()
     tbl = torch.clamp(bins.gauss_tbl.long(), 0, n - 1)
     surfel = mode == "surfel"
@@ -484,7 +477,7 @@ def blend_bwd_ref(attr16: torch.Tensor, bins: TileBins,
     T, kmax = bins.gauss_tbl.shape
     sb = superblock(kmax, sup)
     n = attr16.shape[0]
-    px, py = _pixel_grid(T, ntx, tile, dev)
+    px, py = tile_pixels(T, ntx, tile, dev)
     counts = bins.counts.long()
     tbl = torch.clamp(bins.gauss_tbl.long(), 0, n - 1)
     surfel = mode == "surfel"
@@ -562,7 +555,7 @@ def blend_contrib_ref(attr16: torch.Tensor, bins: TileBins, ntx: int,
     T, kmax = bins.gauss_tbl.shape
     sb = superblock(kmax, sup)
     n = attr16.shape[0]
-    px, py = _pixel_grid(T, ntx, tile, dev)
+    px, py = tile_pixels(T, ntx, tile, dev)
     counts = bins.counts.long()
     tbl = torch.clamp(bins.gauss_tbl.long(), 0, n - 1)
     zero = torch.zeros((), dtype=torch.float32, device=dev)

@@ -1,11 +1,21 @@
-"""Projection and tile binning for the Gaussian rasterizer (plain torch ops).
+"""The tile-based Gaussian rasterizer as plain torch ops.
 
 Counterpart of ``pings_tpu/ops/rasterize.py``: ``apply_pose_delta`` (:58),
 ``project_gaussians`` (:69-163, EWA splatting), ``mark_visible``
 (:166-180), ``bin_gaussians`` (:265-384, both tiers and both sort
-branches) and ``project_surfels`` (:547-591). The blend itself lives in
-``ops/raster_blend.py``. The XLA-style blend arbiters and the 2DGS mode
-are not ported yet.
+branches), ``blend_tiles`` (:403-523), ``project_surfels`` (:547-591),
+``blend_tiles_surfel`` (:594-773, surfel and 2DGS modes) and
+``rasterize`` (:780-827).
+
+The fused blend of the 3DGS and surfel modes lives in
+``ops/raster_blend.py`` (CUDA kernels on the card). ``blend_tiles`` and
+``blend_tiles_surfel`` are the portable blends: the arbiters those kernels
+are held against, and the only blend of the 2DGS mode, which the JAX
+package never runs in Pallas either. They scan the tile table in chunks
+of ``chunk`` slots over (T, chunk, P) tensors; each chunk runs under
+``torch.utils.checkpoint`` when autograd records, as the JAX version runs
+its scan body under ``jax.checkpoint``, so the backward keeps only the
+carried (T, P) state of each chunk.
 
 Binning reproduces the JAX tile table exactly (``tests/test_torch_
 rasterize.py``): the same pair enumeration, the same sort keys (the float
@@ -40,12 +50,14 @@ class ProjectedGaussians(NamedTuple):
 
 
 class ProjectedSurfels(NamedTuple):
-    """ProjectedGaussians of the flattened splat plus its tangent plane.
-    (The JAX version also carries the 2DGS ray-disc rows t0-t2; they come
-    with the 2DGS mode.)"""
+    """ProjectedGaussians of the flattened splat plus its tangent plane and
+    the 2DGS ray-disc rows."""
     base: ProjectedGaussians
     plane_n: torch.Tensor   # (N, 3) cam-frame unit normal (toward camera)
     plane_d: torch.Tensor   # (N,)  n . p_cam
+    t0: torch.Tensor        # (N, 3) 2DGS rows: (u, v, 1) -> (x z, y z, z)
+    t1: torch.Tensor
+    t2: torch.Tensor
 
 
 class TileBins(NamedTuple):
@@ -63,7 +75,9 @@ class RenderOutput(NamedTuple):
     normal: torch.Tensor    # (H, W, 3)
     contrib: torch.Tensor   # (N,) summed blend weight per gaussian
     n_overflow: torch.Tensor
-    depth_median: torch.Tensor | None = None  # (H, W), surfel mode
+    # surfel / 2DGS extras (None in 3DGS mode)
+    depth_median: torch.Tensor | None = None  # (H, W) depth at T ~ 0.5
+    distortion: torch.Tensor | None = None    # (H, W) 2DGS depth distortion
 
 
 def apply_pose_delta(T_c_w: torch.Tensor, theta: torch.Tensor,
@@ -182,20 +196,33 @@ def project_surfels(
     means3d, quats, scales, opacities, colors, valid,
     T_c_w, K, width: int, height: int,
 ) -> ProjectedSurfels:
-    """Project flat splats: the flattened-EWA footprint plus the tangent
-    plane that gives the per-pixel plane depth."""
+    """Project flat splats: the flattened-EWA footprint, the tangent plane
+    that gives the per-pixel plane depth, and the 2DGS rows that map the
+    splat's (u, v, 1) to pixel-homogeneous coordinates (both flat modes
+    get every field)."""
     thin = scales.clone()
     thin[:, 2] = 1e-7
     base = project_gaussians(means3d, quats, thin, opacities, colors,
                              valid, T_c_w, K, width, height)
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     R_cw = T_c_w[:3, :3]
     p_c = means3d @ R_cw.T + T_c_w[:3, 3]
     V = _cam_axes(R_cw, _rot_entries(quats))
+    v_u = torch.stack([V[0][0], V[1][0], V[2][0]], -1)
+    v_v = torch.stack([V[0][1], V[1][1], V[2][1]], -1)
     n = torch.stack([V[0][2], V[1][2], V[2][2]], -1)
     n = n * torch.where(torch.sum(n * p_c, dim=-1, keepdim=True) > 0,
                         -1.0, 1.0)
+    # S = [s0 v_u, s1 v_v, p_c] maps (u, v, 1) to a camera point; K @ S
+    # maps it to (x z, y z, z)
+    S0 = scales[:, 0:1] * v_u
+    S1 = scales[:, 1:2] * v_v
+    row = lambda i: torch.stack([S0[:, i], S1[:, i], p_c[:, i]], -1)
+    sx, sy, sz = row(0), row(1), row(2)
     return ProjectedSurfels(base=base, plane_n=n,
-                            plane_d=torch.sum(n * p_c, dim=-1))
+                            plane_d=torch.sum(n * p_c, dim=-1),
+                            t0=fx * sx + cx * sz, t1=fy * sy + cy * sz,
+                            t2=sz)
 
 
 # ---------------------------------------------------------------------------
@@ -341,3 +368,336 @@ def bin_gaussians(
     return TileBins(gauss_tbl=gauss_tbl, mask=mask, counts=counts,
                     n_overflow=(span_overflow + tile_overflow).to(
                         torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Blending (the portable arbiters; the 2DGS blend)
+# ---------------------------------------------------------------------------
+
+def tile_pixels(T: int, ntx: int, tile: int, dev):
+    """Pixel centres of every tile: two (T, P) tensors, lane p = iy * tile
+    + ix of the tile's row-major pixels."""
+    lane = torch.arange(tile * tile, device=dev)
+    t_idx = torch.arange(T, device=dev)
+    px = ((t_idx[:, None] % ntx) * tile + lane[None, :] % tile).float() + 0.5
+    py = ((t_idx[:, None] // ntx) * tile + lane[None, :] // tile).float() + 0.5
+    return px, py
+
+
+def _untile(x: torch.Tensor, ntx: int, nty: int, tile: int, width: int,
+            height: int) -> torch.Tensor:
+    """(T, P, C) -> (H, W, C)."""
+    x = x.reshape(nty, ntx, tile, tile, -1).permute(0, 2, 1, 3, 4)
+    return x.reshape(nty * tile, ntx * tile, -1)[:height, :width]
+
+
+def _chunked_table(bins: TileBins, chunk: int, n: int):
+    """The table as (chunks, T, chunk) ids, clamped into [0, n) as a JAX
+    gather clamps them, their mask, and which ids were in range (a JAX
+    scatter with mode="drop" skips the others)."""
+    T, kmax = bins.gauss_tbl.shape
+    nchunks = kmax // chunk
+    if nchunks * chunk != kmax:
+        raise ValueError(f"max_per_tile={kmax} must be divisible by "
+                         f"chunk={chunk}")
+    ids = bins.gauss_tbl.long()
+    inside = (ids >= 0) & (ids < n)
+    split = lambda x: x.reshape(T, nchunks, chunk).transpose(0, 1)
+    return (split(torch.clamp(ids, 0, n - 1)), split(bins.mask),
+            split(inside))
+
+
+def _scan(body, carry, xs):
+    """Run ``body(*carry, *x)`` over the chunks ``xs``, each step under
+    ``torch.utils.checkpoint`` while autograd records (the rematerialized
+    scan of the JAX version)."""
+    from torch.utils.checkpoint import checkpoint
+
+    remat = torch.is_grad_enabled()
+    for x in zip(*xs):
+        carry = (checkpoint(body, *carry, *x, use_reentrant=False) if remat
+                 else body(*carry, *x))
+    return carry
+
+
+def _excl_cumprod(one_m: torch.Tensor):
+    """(inclusive, exclusive) cumulative products along the chunk axis."""
+    cp = torch.cumprod(one_m, dim=1)
+    return cp, torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+
+
+def blend_tiles(
+    p: ProjectedGaussians,
+    bins: TileBins,
+    bg: torch.Tensor,          # (3,)
+    width: int, height: int,
+    tile: int = 16,
+    chunk: int = 32,
+    normalize_depth: bool = True,
+    cutoff_q: float = 9.0,
+    alpha_floor: float = 1.0 / 255.0,
+    with_contrib: bool = False,
+) -> RenderOutput:
+    """Front-to-back alpha blending over the per-tile tables, ``chunk``
+    slots at a time: each chunk computes its alphas, an in-chunk exclusive
+    cumulative product, and multiplies by the carried transmittance.
+    ``with_contrib`` sums each Gaussian's blend weights into ``contrib``."""
+    ntx = (width + tile - 1) // tile
+    nty = (height + tile - 1) // tile
+    T = ntx * nty
+    P = tile * tile
+    n = p.means2d.shape[0]
+    dev = p.means2d.device
+    px, py = tile_pixels(T, ntx, tile, dev)
+    xs = _chunked_table(bins, chunk, n)
+
+    def body(trans, acc_rgb, acc_d, acc_n, acc_a, contrib, gi, gm, inside):
+        mu = p.means2d[gi]                            # (T, chunk, 2)
+        con = p.conic[gi]
+        op = p.opacity[gi]
+        col = p.color[gi]
+        dep = p.depth[gi]
+        nor = p.normal[gi]
+
+        dx = px[:, None, :] - mu[..., 0:1]            # (T, chunk, P)
+        dy = py[:, None, :] - mu[..., 1:2]
+        q = (con[..., 0:1] * dx * dx + con[..., 2:3] * dy * dy
+             + 2.0 * con[..., 1:2] * dx * dy)
+        alpha = op[..., None] * torch.exp(-0.5 * q)
+        # the 3-sigma cutoff and the 1/255 floor (configurable so that
+        # gradient tests can use a smooth regime)
+        alpha = torch.where(gm[..., None] & (q < cutoff_q)
+                            & (alpha >= alpha_floor), alpha, 0.0)
+        alpha = torch.clamp_max(alpha, 0.999)
+
+        cp, excl = _excl_cumprod(1.0 - alpha)
+        w = alpha * excl * trans[:, None, :]          # blend weights
+        acc_rgb = acc_rgb + torch.einsum("tkp,tkc->tpc", w, col)
+        acc_n = acc_n + torch.einsum("tkp,tkc->tpc", w, nor)
+        acc_d = acc_d + torch.sum(w * dep[..., None], dim=1)
+        acc_a = acc_a + torch.sum(w, dim=1)
+        if with_contrib:
+            contrib = contrib.index_add(
+                0, gi.reshape(-1),
+                torch.where(inside, torch.sum(w, dim=-1), 0.0).reshape(-1))
+        trans = trans * cp[:, -1, :]
+        return trans, acc_rgb, acc_d, acc_n, acc_a, contrib
+
+    z = lambda *s: torch.zeros(s, device=dev)
+    trans, rgb, d, nrm, a, contrib = _scan(
+        body, (torch.ones((T, P), device=dev), z(T, P, 3), z(T, P),
+               z(T, P, 3), z(T, P), z(n)), xs)
+
+    rgb = rgb + trans[..., None] * bg
+    if normalize_depth:
+        # 0.05 floor: below 5% coverage the depth means nothing, and a
+        # smaller floor turns d(depth)/d(alpha) into a huge gradient at
+        # empty pixels
+        d = d / torch.clamp_min(a, 0.05)
+    ut = lambda x: _untile(x, ntx, nty, tile, width, height)
+    return RenderOutput(
+        rgb=ut(rgb), depth=ut(d[..., None])[..., 0],
+        alpha=ut(a[..., None])[..., 0], normal=ut(nrm), contrib=contrib,
+        n_overflow=bins.n_overflow)
+
+
+def _nonzero(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """x with |x| < eps moved to sign(x) eps + 1e-12."""
+    return torch.where(torch.abs(x) < eps, torch.sign(x) * eps + 1e-12, x)
+
+
+def blend_tiles_surfel(
+    p: ProjectedSurfels,
+    bins: TileBins,
+    bg: torch.Tensor,
+    K: torch.Tensor,
+    width: int, height: int,
+    tile: int = 16,
+    chunk: int = 32,
+    mode: str = "surfel",
+    normalize_depth: bool = True,
+    cutoff_q: float = 9.0,
+    alpha_floor: float = 1.0 / 255.0,
+    depth_map_scale: float = 1.0,
+) -> RenderOutput:
+    """Front-to-back blending of flat splats.
+
+    mode="surfel": alpha from the flattened EWA conic, per-pixel depth from
+    the splat's tangent plane, blended normals, alpha-normalized depth.
+    mode="2dgs": alpha from the exact ray-disc intersection
+    G = exp(-(u^2 + v^2) / 2) with the 2DGS screen-space low-pass (the
+    smaller of that and a sigma^2 = 2 px Gaussian at the projected
+    centre), the intersection's depth, and the 2DGS extras: the per-ray
+    depth distortion (online pairwise |m_i - m_j| of the mapped depth
+    m = z / (z + depth_map_scale)). Both modes give the median depth (where
+    the transmittance first drops to 0.5) and zero contributions."""
+    if mode not in ("surfel", "2dgs"):
+        raise ValueError(f"mode must be 'surfel' or '2dgs', got {mode!r}")
+    b = p.base
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    ntx = (width + tile - 1) // tile
+    nty = (height + tile - 1) // tile
+    T = ntx * nty
+    P = tile * tile
+    n = b.means2d.shape[0]
+    dev = b.means2d.device
+    px, py = tile_pixels(T, ntx, tile, dev)
+    xs = _chunked_table(bins, chunk, n)[:2]
+
+    def body(trans, acc_rgb, acc_d, acc_n, acc_a, med, med_set, dist, accA,
+             accM1, gi, gm):
+        mu = b.means2d[gi]
+        con = b.conic[gi]
+        op = b.opacity[gi]
+        col = b.color[gi]
+        nor = b.normal[gi]
+        far = b.depth[gi][..., None]                  # (T, chunk, 1)
+
+        dx = px[:, None, :] - mu[..., 0:1]            # (T, chunk, P)
+        dy = py[:, None, :] - mu[..., 1:2]
+        q2 = (con[..., 0:1] * dx * dx + con[..., 2:3] * dy * dy
+              + 2.0 * con[..., 1:2] * dx * dy)
+
+        if mode == "surfel":
+            pn = p.plane_n[gi]                        # (T, chunk, 3)
+            G = torch.exp(-0.5 * q2)
+            # per-pixel plane depth z = (n . p_c) / (n . d_pix)
+            dpx = (px[:, None, :] - cx) / fx
+            dpy = (py[:, None, :] - cy) / fy
+            ndotd = pn[..., 0:1] * dpx + pn[..., 1:2] * dpy + pn[..., 2:3]
+            z = p.plane_d[gi][..., None] / _nonzero(ndotd, 1e-6)
+            qcut = q2
+        else:   # ray-disc intersection
+            t0g, t1g, t2g = p.t0[gi], p.t1[gi], p.t2[gi]   # (T, chunk, 3)
+            # hu = px t2 - t0, hv = py t2 - t1 over (u, v, 1)
+            hu = px[:, None, :, None] * t2g[:, :, None, :] \
+                - t0g[:, :, None, :]                  # (T, chunk, P, 3)
+            hv = py[:, None, :, None] * t2g[:, :, None, :] \
+                - t1g[:, :, None, :]
+            cr = torch.linalg.cross(hu, hv, dim=-1)
+            w_h = _nonzero(cr[..., 2], 1e-9)
+            u = cr[..., 0] / w_h
+            v = cr[..., 1] / w_h
+            rho_obj = u * u + v * v
+            # screen-space low-pass: sigma^2 = 2 px around the centre
+            rho_2d = (dx * dx + dy * dy) / 2.0
+            qcut = torch.minimum(rho_obj, rho_2d)
+            G = torch.exp(-0.5 * qcut)
+            z = (u * t2g[..., 0][..., None] + v * t2g[..., 1][..., None]
+                 + t2g[..., 2][..., None])
+        z_ok = z > 0.01
+        z = torch.where(z_ok, z, far)
+
+        alpha = op[..., None] * G
+        alpha = torch.where(gm[..., None] & (qcut < cutoff_q)
+                            & (alpha >= alpha_floor) & z_ok, alpha, 0.0)
+        alpha = torch.clamp_max(alpha, 0.999)
+
+        one_m = 1.0 - alpha
+        cp, excl = _excl_cumprod(one_m)
+        T_in = excl * trans[:, None, :]               # (T, chunk, P)
+        w = alpha * T_in
+        acc_rgb = acc_rgb + torch.einsum("tkp,tkc->tpc", w, col)
+        acc_n = acc_n + torch.einsum("tkp,tkc->tpc", w, nor)
+        acc_d = acc_d + torch.sum(w * z, dim=1)
+        acc_a = acc_a + torch.sum(w, dim=1)
+
+        # median depth: the slot where the transmittance crosses 0.5
+        T_out = T_in * one_m
+        crossing = (T_in > 0.5) & (T_out <= 0.5)
+        med_chunk = torch.sum(torch.where(crossing, z, 0.0), dim=1)
+        has_cross = torch.any(crossing, dim=1)
+        med = torch.where(~med_set & has_cross, med_chunk, med)
+        med_set = med_set | has_cross
+
+        if mode == "2dgs":
+            # online pairwise depth distortion of the mapped depth
+            m_map = z / (z + depth_map_scale)
+            cw = torch.cumsum(w, dim=1)
+            cwm = torch.cumsum(w * m_map, dim=1)
+            A_prev = accA[:, None, :] + cw - w        # exclusive prefixes
+            M1_prev = accM1[:, None, :] + cwm - w * m_map
+            dist = dist + 2.0 * torch.sum(w * (m_map * A_prev - M1_prev),
+                                          dim=1)
+            accA = accA + cw[:, -1, :]
+            accM1 = accM1 + cwm[:, -1, :]
+
+        trans = trans * cp[:, -1, :]
+        return (trans, acc_rgb, acc_d, acc_n, acc_a, med, med_set, dist,
+                accA, accM1)
+
+    z = lambda *s: torch.zeros(s, device=dev)
+    trans, rgb, d, nrm, a, med, _, dist, _, _ = _scan(
+        body, (torch.ones((T, P), device=dev), z(T, P, 3), z(T, P),
+               z(T, P, 3), z(T, P), z(T, P),
+               torch.zeros((T, P), dtype=torch.bool, device=dev), z(T, P),
+               z(T, P), z(T, P)), xs)
+
+    rgb = rgb + trans[..., None] * bg
+    if normalize_depth:
+        d = d / torch.clamp_min(a, 0.05)   # see blend_tiles
+    ut = lambda x: _untile(x, ntx, nty, tile, width, height)
+    flat = lambda x: ut(x[..., None])[..., 0]
+    return RenderOutput(
+        rgb=ut(rgb), depth=flat(d), alpha=flat(a), normal=ut(nrm),
+        contrib=z(n), n_overflow=bins.n_overflow, depth_median=flat(med),
+        distortion=flat(dist) if mode == "2dgs" else None)
+
+
+# ---------------------------------------------------------------------------
+# Top-level API
+# ---------------------------------------------------------------------------
+
+def rasterize(
+    means3d, quats, scales, opacities, colors, valid,
+    T_c_w, K, width: int, height: int,
+    theta=None, rho=None,
+    bg=None,
+    tile: int = 16, max_span: int = 36, max_per_tile: int = 512,
+    chunk: int = 32, normalize_depth: bool = True,
+    cutoff_q: float = 9.0, alpha_floor: float = 1.0 / 255.0,
+    with_contrib: bool = False,
+    mode: str = "3dgs",
+    stage_hook=None,
+) -> RenderOutput:
+    """Differentiable rasterization with the portable blend: project ->
+    bin -> ``blend_tiles`` / ``blend_tiles_surfel``.
+
+    ``theta``/``rho`` are camera rotation/translation deltas applied as an
+    se3 retraction. The binning is structure, not a differentiable
+    function of the splats: gradients flow through the projection and the
+    blend only. mode: "3dgs", "surfel" or "2dgs" (ray-disc intersection,
+    median depth and distortion); ``with_contrib`` applies to "3dgs" (the
+    flat modes give zero contributions). ``stage_hook`` (the
+    ``raster_blend.StageHook`` signature) is called after "project", "bin"
+    and "blend"."""
+    hook = stage_hook or (lambda stage, **tensors: None)
+    if theta is not None:
+        T_c_w = apply_pose_delta(T_c_w, theta, rho)
+    if bg is None:
+        bg = torch.zeros(3, device=means3d.device)
+    if mode != "3dgs":
+        ps = project_surfels(means3d, quats, scales, opacities, colors,
+                             valid, T_c_w, K, width, height)
+        hook("project")
+        base = ProjectedGaussians(*(x.detach() for x in ps.base))
+        bins = bin_gaussians(base, width, height, tile=tile,
+                             max_span=max_span, max_per_tile=max_per_tile)
+        hook("bin", bins=bins)
+        out = blend_tiles_surfel(ps, bins, bg, K, width, height, tile=tile,
+                                 chunk=chunk, mode=mode,
+                                 normalize_depth=normalize_depth,
+                                 cutoff_q=cutoff_q, alpha_floor=alpha_floor)
+    else:
+        p = project_gaussians(means3d, quats, scales, opacities, colors,
+                              valid, T_c_w, K, width, height)
+        hook("project")
+        base = ProjectedGaussians(*(x.detach() for x in p))
+        bins = bin_gaussians(base, width, height, tile=tile,
+                             max_span=max_span, max_per_tile=max_per_tile)
+        hook("bin", bins=bins)
+        out = blend_tiles(p, bins, bg, width, height, tile=tile, chunk=chunk,
+                          normalize_depth=normalize_depth, cutoff_q=cutoff_q,
+                          alpha_floor=alpha_floor, with_contrib=with_contrib)
+    hook("blend")
+    return out

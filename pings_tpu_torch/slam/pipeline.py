@@ -11,7 +11,8 @@ incidence, ray sampling, the replay pool, certainty), the SDF-only training (``_
 scan step on frame 0, or every frame without cameras or GS) and the joint
 GS+SDF iterations (``_train_gs``, :652-840). ``save`` and ``load``
 (:925-954) write and read the JAX package's checkpoint layout;
-``render_cam`` (:901-922) renders the map's current local window.
+``render_cam`` (:901-922) renders the map's current local window and
+``make_vis_packet`` (:842-899) snapshots the run for the viewer.
 
 With ``save_merged_pc`` the map update keeps each scan downsampled at
 twice ``vox_down_m`` for ``merged_point_cloud`` (:303-308, :566-570); with
@@ -37,6 +38,7 @@ across frames and across map inserts.
 from __future__ import annotations
 
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -65,6 +67,7 @@ from pings_tpu_torch.slam.loop_detector import (
     ScanContextManager, detect_local_loop)
 from pings_tpu_torch.slam.pgo import PoseGraph
 from pings_tpu_torch.utils import pose as hp
+from pings_tpu_torch.vis.packet import VisPacket, downsample_points
 
 MAX_FRAMES = 100000
 
@@ -602,6 +605,67 @@ class SlamSystem:
             rep.metrics["sdf_bce"] = float(met.bce)
         if cfg.gs_on and pre.cams:
             self._train_gs(pre, fid, rep, freeze)
+
+    # -- visualization --------------------------------------------------------
+    def make_vis_packet(self, pre: Optional[PreprocessedFrame] = None,
+                        gt_poses=None, max_points: int = 200_000,
+                        with_render: bool = False) -> VisPacket:
+        """Snapshot the current SLAM state as a VisPacket: the neural
+        points, the frame's scan, the trajectories, the last 12 keyframe
+        cameras and, with ``with_render``, the newest short-term keyframe
+        rendered from the map. A failed render leaves the images out and
+        prints why on stderr; the run goes on."""
+        pkt = VisPacket(frame_id=self.frame_id)
+        n = int(self.m.count)
+        if n:
+            xyz = self.m.positions[:n].cpu().numpy()
+            col = (np.clip(self.m.rgb[:n].cpu().numpy(), 0, 1)
+                   * 255).astype(np.uint8)
+            pkt.neural_points, pkt.neural_colors = downsample_points(
+                xyz, col, max_points)
+        if pre is not None and self.poses:
+            T = self.poses[-1]
+            pts_w = (pre.points_l[pre.mask] @ T[:3, :3].T
+                     + T[:3, 3]).astype(np.float32)
+            pkt.scan_points, _ = downsample_points(pts_w, None,
+                                                   max_points // 4)
+        if self.poses:
+            pkt.traj_est = np.stack(
+                [p[:3, 3] for p in self.poses]).astype(np.float32)
+        if gt_poses is not None and len(gt_poses):
+            pkt.traj_gt = np.stack(
+                [p[:3, 3] for p in gt_poses[:len(self.poses)]]).astype(
+                np.float32)
+        if self.campool is not None:
+            cams = self.campool.all_cams()[-12:]
+            if cams:
+                Ts, ks = [], []
+                for pc in cams:
+                    T_c_w = pc.cam.T_c_w.cpu().numpy().astype(np.float64)
+                    Ts.append(hp.se3_inv(T_c_w))
+                    K = pc.cam.K.cpu().numpy()
+                    h, w = pc.cam.rgb.shape[:2]
+                    ks.append([float(K[0, 0]), float(K[1, 1]), w, h])
+                pkt.cam_poses = np.stack(Ts).astype(np.float32)
+                pkt.cam_intrinsics = np.asarray(ks, np.float32)
+        if with_render and self.campool is not None and self.campool.short:
+            pc = self.campool.short[-1]
+            try:
+                out = self.render_cam(pc.cam)
+                pkt.images["render_rgb"] = (
+                    np.clip(out.rgb.cpu().numpy(), 0, 1) * 255).astype(
+                    np.uint8)
+                d = out.depth.cpu().numpy()
+                pkt.images["render_depth"] = (
+                    np.clip(d / max(float(d.max()), 1e-6), 0, 1)[..., None]
+                    * np.ones(3) * 255).astype(np.uint8)
+                pkt.images["target_rgb"] = (
+                    np.clip(pc.cam.rgb.cpu().numpy(), 0, 1) * 255).astype(
+                    np.uint8)
+            except Exception as e:   # the packet is best-effort
+                print(f"make_vis_packet: render failed: {e!r}",
+                      file=sys.stderr, flush=True)
+        return pkt
 
     @torch.no_grad()
     def render_cam(self, cam: CamView):

@@ -234,7 +234,7 @@ def test_warp_cull_keeps_every_active_slot_pixel(rng, mode, tile):
     a[::7, GEOM[mode][2]] = a[::7, GEOM[mode][4]] = 1e-3      # wide ones
     n = a.shape[0]
     rows = torch.from_numpy(a)[np.minimum(tbl, n - 1)]        # (T, K, 16)
-    px, py = rb._pixel_grid(T, ntx, tile, "cpu")              # (T, P)
+    px, py = rb.tile_pixels(T, ntx, tile, "cpu")              # (T, P)
     alpha, _ = rb.slot_alpha(lambda c: rows[:, :, c:c + 1], px[:, None],
                              py[:, None], mode)               # (T, K, P)
     rects, owner = _warp_rects(ntx, tile, T)                  # (T, NW, 4)
@@ -425,7 +425,7 @@ def test_culled_warp_slots_carry_no_blend_weight(rng, mode):
     at = torch.from_numpy(a)
     idx = torch.from_numpy(np.minimum(tbl, n - 1)).long()
     rows = at[idx]                                            # (T, K, 16)
-    px, py = rb._pixel_grid(T, ntx, tile, "cpu")
+    px, py = rb.tile_pixels(T, ntx, tile, "cpu")
     alpha, _ = rb.slot_alpha(lambda c: rows[:, :, c:c + 1], px[:, None],
                              py[:, None], mode)               # (T, K, P)
     on = torch.arange(kmax)[None] < torch.from_numpy(counts)[:, None]

@@ -1,5 +1,5 @@
-"""Guards of the port: it never loads JAX or pings_tpu, and its entry
-points never fall back to the CPU on their own."""
+"""Guards of the port: it never loads JAX, pings_tpu or matplotlib, and
+its entry points never fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -28,8 +28,11 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_pings_tpu():
     """A fresh process imports every module of the port; no module of
-    jax or pings_tpu may appear in sys.modules on the way (counted from
-    what the interpreter had loaded before the first import)."""
+    jax, pings_tpu or matplotlib may appear in sys.modules on the way
+    (counted from what the interpreter had loaded before the first
+    import). The card's machine has no matplotlib: the viewer encodes its
+    thumbnails itself, and only ``eval.traj.plot_trajectories`` (the
+    optional ``traj_plot.png``) imports it, when called."""
     mods = _modules()
     assert "pings_tpu_torch.ops.raster_blend" in mods
     for new in ("ops.ssim", "mapping.losses", "mapping.gs_mapper",
@@ -43,7 +46,8 @@ def test_port_imports_neither_jax_nor_pings_tpu():
                 "slam.tsdf", "eval.image", "eval.lpips", "eval.mesh",
                 "inspect_map", "data.monodepth", "data.bag_formats",
                 "data.rosbag", "data.ouster", "data.lidar", "data.kitti360",
-                "data.generic", "data.raw_formats"):
+                "data.generic", "data.raw_formats", "ops.rasterize_ref",
+                "vis", "vis.packet", "vis.viewer", "vis.live"):
         assert "pings_tpu_torch." + new in mods
     # the native library loaded is the port's build, never the JAX
     # package's pings_tpu/native/libpings.so
@@ -52,7 +56,8 @@ def test_port_imports_neither_jax_nor_pings_tpu():
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'pings_tpu' "
-            "or m.startswith('pings_tpu.'))\n"
+            "or m.startswith('pings_tpu.') or m == 'matplotlib' "
+            "or m.startswith('matplotlib.'))\n"
             "assert not bad, bad\n"
             "from pings_tpu_torch.native import get_lib\n"
             "get_lib()\n"
@@ -250,8 +255,19 @@ def test_render_raises_without_a_card():
                   torch.zeros(16, 16), torch.zeros(16, 16), 0)
     with pytest.raises(RuntimeError, match="cuda"):
         render(local, {}, cam, 16, 16)
-    with pytest.raises(NotImplementedError, match="2d_gs not yet ported"):
-        render(local, {}, cam, 16, 16, gs_type="2d_gs", device="cpu")
+    # 2DGS is ported: it asks for the card by default and renders on the
+    # CPU when asked (all four points are invalid: an empty image)
+    with pytest.raises(RuntimeError, match="cuda"):
+        render(local, {}, cam, 16, 16, gs_type="2d_gs")
+    from pings_tpu_torch.config import Config
+    from pings_tpu_torch.models.decoder import init_decoders
+
+    cfg = Config(feature_dim=8, color_feature_dim=8)
+    local = local._replace(valid=torch.zeros(4, dtype=torch.bool))
+    r = render(local, init_decoders(torch.Generator(), cfg, "cpu"), cam, 16,
+               16, gs_type="2d_gs", device="cpu")
+    assert r.distortion.shape == (16, 16) and not r.alpha.any()
+    assert r.depth_median is not None
 
 
 def test_blend_fwd_refuses_other_devices():
