@@ -1621,34 +1621,63 @@ def arbiter(torch, rb, cfg, system, view, W, H, mode):
     return err, c_err
 
 
-def serve_2dgs(torch, rb, name, cfg, system, views, W, H):
+def timed_render(torch, cfg, system, view, W, H, gs_type):
+    """One ``render()`` of ``view`` on the card: (result, ms on the host
+    clock with a synchronize on both sides, the blend's ms from CUDA
+    events between the "bin" stage and the next, peak device GiB)."""
+    from pings_tpu_torch.models.renderer import render
+
+    local, cam = view
+    marks = []
+
+    def hook(stage, **_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = render(local, system.decoders, cam, W, H, stage_hook=hook,
+               **render_kw(cfg, gs_type))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    i = [st for st, _ in marks].index("bin")
+    return (r, ms, marks[i][1].elapsed_time(marks[i + 1][1]),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def repeat_ms(torch, cfg, system, views, W, H, gs_type, reps=3):
+    """Renders every view ``reps`` times on the card (after their first
+    render elsewhere): the per-render view ms, blend ms and peak GiB."""
+    ms, blend, peak = [], [], []
+    for _ in range(reps):
+        for view in views:
+            _, t_ms, b_ms, gib = timed_render(torch, cfg, system, view, W,
+                                              H, gs_type)
+            ms.append(t_ms)
+            blend.append(b_ms)
+            peak.append(gib)
+    return ms, blend, peak
+
+
+def serve_2dgs(torch, rb, name, cfg, system, views, W, H, reps=3):
     """``render(gs_type="2d_gs")`` of the views on the card and on the
     CPU: the robust rule between the two; the median depth and the
-    distortion finite; no CUDA kernel launched. Prints ms per view (host
-    clock with a synchronize), the blend's ms (CUDA events between the
-    "bin" and "blend" stages) and the peak device memory."""
+    distortion finite; no CUDA kernel launched. Then renders every view
+    ``reps`` more times on the card alone and prints the median over
+    those of the ms per view and of the blend's ms, and the peak device
+    memory (``timed_render``)."""
     from pings_tpu_torch.models.renderer import render
 
     kw = render_kw(cfg, "2d_gs")
-    ms, blend, peak, cpu_s = [], [], [], []
+    first_ms, peak, cpu_s = [], [], []
     rb.reset_launches()
     for local, cam in views:
-        marks = {}
-
-        def hook(stage, **_):
-            if stage in ("bin", "blend"):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks[stage] = ev
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        r = render(local, system.decoders, cam, W, H, stage_hook=hook, **kw)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        blend.append(marks["bin"].elapsed_time(marks["blend"]))
-        peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        r, t_ms, _, gib = timed_render(torch, cfg, system, (local, cam), W,
+                                       H, "2d_gs")
+        first_ms.append(t_ms)
+        peak.append(gib)
         t0 = time.perf_counter()
         c = render(local, system.decoders, cam, W, H,
                    **dict(kw, device="cpu"))
@@ -1668,6 +1697,9 @@ def serve_2dgs(torch, rb, name, cfg, system, views, W, H):
         if tuple(r.rgb.shape) != (H, W, 3) or not a > 0.2:
             raise AssertionError(f"2dgs {name}: rgb {tuple(r.rgb.shape)}, "
                                  f"mean alpha {a}")
+    ms, blend, peak_r = repeat_ms(torch, cfg, system, views, W, H, "2d_gs",
+                                  reps)
+    peak += peak_r
     launches = (dict(rb.LAUNCHES), dict(rb.BWD_LAUNCHES),
                 dict(rb.CONTRIB_LAUNCHES))
     if any(v for d in launches for v in d.values()):
@@ -1675,14 +1707,15 @@ def serve_2dgs(torch, rb, name, cfg, system, views, W, H):
                              f"{launches}")
     log(f"2dgs serve {name}: {len(views)} views {W}x{H}, "
         f"{r.gaussians.means.shape[0]} Gaussians/view; card = CPU by the "
-        f"robust rule; view ms {[round(x, 3) for x in ms]} (median after "
-        f"warm-up {statistics.median(ms[1:]):.3f}); blend ms "
-        f"{[round(x, 3) for x in blend]}; peak device memory GiB "
+        f"robust rule; first renders ms {[round(x, 3) for x in first_ms]}; "
+        f"{reps} more of each view: view ms {[round(x, 3) for x in ms]} "
+        f"(median {statistics.median(ms):.3f}); blend ms "
+        f"{[round(x, 3) for x in blend]} (median "
+        f"{statistics.median(blend):.3f}); peak device memory GiB "
         f"{[round(x, 3) for x in peak]}; CPU s per view "
         f"{[round(x, 2) for x in cpu_s]}; mean distortion "
         f"{float(r.distortion.mean()):.3e}; no kernel launched")
-    return statistics.median(ms[1:]), statistics.median(blend[1:]), \
-        max(peak)
+    return statistics.median(ms), statistics.median(blend), max(peak)
 
 
 def render_grad_ms(torch, cfg, system, view, W, H, reps=4):
@@ -2841,9 +2874,15 @@ def main():
     s2_k = serve_2dgs(torch, rb, "kitti", cfg_k, sys_k, views_k, 640, 240)
     s2_r = serve_2dgs(torch, rb, "replica", cfg_r, sys_r, views_r, 1200,
                       680)
-    log(f"2dgs per-view ms, blend ms, peak GiB: kitti {s2_k}, replica "
-        f"{s2_r}; surfel per-view ms in this call: kitti {ms_k:.3f}, "
-        f"replica {ms_r:.3f}")
+    # the surfel kernels timed as the 2DGS views are, on the same views
+    for tag, args, s2 in (
+            ("kitti", (cfg_k, sys_k, views_k, 640, 240), s2_k),
+            ("replica", (cfg_r, sys_r, views_r, 1200, 680), s2_r)):
+        v_ms, b_ms, gib = repeat_ms(torch, *args, "gaussian_surfel")
+        log(f"2dgs / surfel, {tag}, median of 3 more renders of each view:"
+            f" view ms {s2[0]:.3f} / {statistics.median(v_ms):.3f}, blend "
+            f"ms {s2[1]:.3f} / {statistics.median(b_ms):.3f}, peak GiB "
+            f"{s2[2]:.3f} / {max(gib):.3f}")
     render_grad_ms(torch, cfg_k, sys_k, view_k, 640, 240)
 
     # training: frames 112-121 (115 and 120 are held out of the keyframes)

@@ -36,6 +36,13 @@ import torch
 from pings_tpu_torch.ops.transforms import se3_exp
 
 LOWPASS = 0.3
+# the blend's gates, as the CUDA kernels (ops/csrc/blend_common.cuh) fix
+# them too: a splat reaches a pixel only where q < CUTOFF_Q (3 sigma) and
+# its alpha is at least ALPHA_FLOOR; the 2DGS distortion maps depth z to
+# z / (z + DEPTH_MAP_SCALE)
+CUTOFF_Q = 9.0
+ALPHA_FLOOR = 1.0 / 255.0
+DEPTH_MAP_SCALE = 1.0
 
 
 class ProjectedGaussians(NamedTuple):
@@ -160,13 +167,13 @@ def project_gaussians(
     mid = 0.5 * (a + c)
     lam = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.0))
     q_max = torch.clamp_max(2.0 * torch.log(
-        torch.clamp_min(255.0 * opacities, 1.0 + 1e-6)), 9.0)
+        torch.clamp_min(255.0 * opacities, 1.0 + 1e-6)), CUTOFF_Q)
     radius = torch.sqrt(q_max * torch.clamp_min(lam, 0.0))
 
     in_front = (tz > near) & (tz < far)
     on_screen = ((u + radius > 0) & (u - radius < width)
                  & (v + radius > 0) & (v - radius < height))
-    ok = valid & in_front & on_screen & (det > 0) & (opacities > 1.0 / 255.0)
+    ok = valid & in_front & on_screen & (det > 0) & (opacities > ALPHA_FLOOR)
     radius = torch.where(ok, radius, torch.zeros_like(radius))
 
     n_cam = torch.stack([V[0][2], V[1][2], V[2][2]], dim=-1)
@@ -434,8 +441,6 @@ def blend_tiles(
     tile: int = 16,
     chunk: int = 32,
     normalize_depth: bool = True,
-    cutoff_q: float = 9.0,
-    alpha_floor: float = 1.0 / 255.0,
     with_contrib: bool = False,
 ) -> RenderOutput:
     """Front-to-back alpha blending over the per-tile tables, ``chunk``
@@ -464,10 +469,8 @@ def blend_tiles(
         q = (con[..., 0:1] * dx * dx + con[..., 2:3] * dy * dy
              + 2.0 * con[..., 1:2] * dx * dy)
         alpha = op[..., None] * torch.exp(-0.5 * q)
-        # the 3-sigma cutoff and the 1/255 floor (configurable so that
-        # gradient tests can use a smooth regime)
-        alpha = torch.where(gm[..., None] & (q < cutoff_q)
-                            & (alpha >= alpha_floor), alpha, 0.0)
+        alpha = torch.where(gm[..., None] & (q < CUTOFF_Q)
+                            & (alpha >= ALPHA_FLOOR), alpha, 0.0)
         alpha = torch.clamp_max(alpha, 0.999)
 
         cp, excl = _excl_cumprod(1.0 - alpha)
@@ -516,9 +519,6 @@ def blend_tiles_surfel(
     chunk: int = 32,
     mode: str = "surfel",
     normalize_depth: bool = True,
-    cutoff_q: float = 9.0,
-    alpha_floor: float = 1.0 / 255.0,
-    depth_map_scale: float = 1.0,
 ) -> RenderOutput:
     """Front-to-back blending of flat splats.
 
@@ -529,7 +529,7 @@ def blend_tiles_surfel(
     smaller of that and a sigma^2 = 2 px Gaussian at the projected
     centre), the intersection's depth, and the 2DGS extras: the per-ray
     depth distortion (online pairwise |m_i - m_j| of the mapped depth
-    m = z / (z + depth_map_scale)). Both modes give the median depth (where
+    m = z / (z + DEPTH_MAP_SCALE)). Both modes give the median depth (where
     the transmittance first drops to 0.5) and zero contributions."""
     if mode not in ("surfel", "2dgs"):
         raise ValueError(f"mode must be 'surfel' or '2dgs', got {mode!r}")
@@ -589,8 +589,8 @@ def blend_tiles_surfel(
         z = torch.where(z_ok, z, far)
 
         alpha = op[..., None] * G
-        alpha = torch.where(gm[..., None] & (qcut < cutoff_q)
-                            & (alpha >= alpha_floor) & z_ok, alpha, 0.0)
+        alpha = torch.where(gm[..., None] & (qcut < CUTOFF_Q)
+                            & (alpha >= ALPHA_FLOOR) & z_ok, alpha, 0.0)
         alpha = torch.clamp_max(alpha, 0.999)
 
         one_m = 1.0 - alpha
@@ -612,7 +612,7 @@ def blend_tiles_surfel(
 
         if mode == "2dgs":
             # online pairwise depth distortion of the mapped depth
-            m_map = z / (z + depth_map_scale)
+            m_map = z / (z + DEPTH_MAP_SCALE)
             cw = torch.cumsum(w, dim=1)
             cwm = torch.cumsum(w * m_map, dim=1)
             A_prev = accA[:, None, :] + cw - w        # exclusive prefixes
@@ -655,7 +655,6 @@ def rasterize(
     bg=None,
     tile: int = 16, max_span: int = 36, max_per_tile: int = 512,
     chunk: int = 32, normalize_depth: bool = True,
-    cutoff_q: float = 9.0, alpha_floor: float = 1.0 / 255.0,
     with_contrib: bool = False,
     mode: str = "3dgs",
     stage_hook=None,
@@ -686,8 +685,7 @@ def rasterize(
         hook("bin", bins=bins)
         out = blend_tiles_surfel(ps, bins, bg, K, width, height, tile=tile,
                                  chunk=chunk, mode=mode,
-                                 normalize_depth=normalize_depth,
-                                 cutoff_q=cutoff_q, alpha_floor=alpha_floor)
+                                 normalize_depth=normalize_depth)
     else:
         p = project_gaussians(means3d, quats, scales, opacities, colors,
                               valid, T_c_w, K, width, height)
@@ -697,7 +695,7 @@ def rasterize(
                              max_span=max_span, max_per_tile=max_per_tile)
         hook("bin", bins=bins)
         out = blend_tiles(p, bins, bg, width, height, tile=tile, chunk=chunk,
-                          normalize_depth=normalize_depth, cutoff_q=cutoff_q,
-                          alpha_floor=alpha_floor, with_contrib=with_contrib)
+                          normalize_depth=normalize_depth,
+                          with_contrib=with_contrib)
     hook("blend")
     return out

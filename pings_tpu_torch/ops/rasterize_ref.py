@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from pings_tpu_torch.ops.rasterize import (
-    RenderOutput, apply_pose_delta, project_gaussians)
+    ALPHA_FLOOR, CUTOFF_Q, RenderOutput, apply_pose_delta, project_gaussians)
 
 
 def rasterize_ref(
@@ -19,7 +19,6 @@ def rasterize_ref(
     T_c_w, K, width: int, height: int,
     theta=None, rho=None, bg=None,
     normalize_depth: bool = True,
-    cutoff_q: float = 9.0, alpha_floor: float = 1.0 / 255.0,
 ) -> RenderOutput:
     if theta is not None:
         T_c_w = apply_pose_delta(T_c_w, theta, rho)
@@ -49,7 +48,7 @@ def rasterize_ref(
     q = (con[:, 0:1] * dx * dx + con[:, 2:3] * dy * dy
          + 2 * con[:, 1:2] * dx * dy)
     alpha = op[:, None] * torch.exp(-0.5 * q)
-    alpha = torch.where((q < cutoff_q) & (alpha >= alpha_floor), alpha, 0.0)
+    alpha = torch.where((q < CUTOFF_Q) & (alpha >= ALPHA_FLOOR), alpha, 0.0)
     alpha = torch.clamp_max(alpha, 0.999)
 
     cp = torch.cumprod(1.0 - alpha, dim=0)
