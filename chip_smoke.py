@@ -202,6 +202,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
            local port: ``GET /`` and ``GET /status`` (3 packets, the
            latest 11) answer and a ``POST /control`` merges into
            ``control.json``; the server is stopped.
+   parallel/ on torch.distributed: (q) ``parallel``: groups of 1 (NCCL),
+           2 and 4 (gloo) spawned ranks, all on this one card, each rank
+           loading the kitti map and the train cell's frames 112-121 (8
+           keyframes) once: on the first kitti view (3DGS, as the JAX
+           package hard-codes) ``render_sharded`` and
+           ``render_gauss_sharded`` against the rank's own one-process
+           renders (rgb and alpha within 1e-5, depth within 2e-4), the
+           tile-sharded blend's forward equal to the whole table's bit for
+           bit and its attr16 gradient (random cotangents) within 2e-4 of
+           each column's magnitude, every rank's tile tables equal to rank
+           0's (an all-gathered checksum); one ``make_dp_train_step`` over
+           the 8 keyframes and one ``make_gauss_sharded_train_step`` on the
+           last, from the same parameters: the parameters equal on every
+           rank bit for bit; at 2 and 4 ranks the loss and PSNR within
+           1e-4 relative of the 1-rank step's, the all-reduced gradients
+           within 1e-5 of each leaf's largest entry or, on a leaf where
+           four runs of the same 1-rank step differ by more (atomics,
+           magnified by edge-on surfels), within 10x their largest
+           difference, the parameters within 5e-6 where the 1-rank
+           gradient is above 1e-3 of its leaf's largest entry and above
+           that bar. Per rank: ms per sharded view and per step, the
+           gradient all-reduce's ms, the peak memory, ``runtime_info()``,
+           beside the card's name and power limit (overheads of sharding
+           on one card, not a scaling result).
 5. times   per-view ms and per-stage ms of ``render()``; ms per GS
            iteration (host clock with a synchronize, fresh and cached
            table) and per-stage ms (CUDA events recorded by the step's
@@ -213,7 +237,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
            two bounds at the real tables: ``bound_ms`` charges the gate to
            every slot-pixel below the tiles' counts, ``bound_hits_ms``
            only to those with alpha > 0, plus one rectangle test per warp
-           and slot.
+           and slot. On the first kitti view's table in both modes the
+           forward and backward kernels also run on its second half with
+           tile0 = 300, held against their plain versions at the bars of
+           phase 2, the forward's rows equal to the whole table's launch
+           bit for bit.
 
 Prints the versions of python, torch, numpy and scipy first, the kernels'
 JSON line, the card's name and power limit, and last ``{"ok": true,
@@ -291,11 +319,12 @@ def close_robust(name, a, b, atol, frac=2e-3, hard_atol=5e-2):
 
 
 def compare_blend(torch, rb, attr16, bins, ntx, nty, mode, sup=256, label="",
-                  tile=16):
+                  tile=16, tile0=0):
     """Kernel vs plain version on the same card inputs; returns the max
     abs error over the tightly held rows."""
-    ko, kt, km = rb.blend_fwd(attr16, bins, ntx, nty, tile, mode, sup)
-    ro, rt, rm = rb.blend_fwd_ref(attr16, bins, ntx, nty, tile, mode, sup)
+    ko, kt, km = rb.blend_fwd(attr16, bins, ntx, nty, tile, mode, sup, tile0)
+    ro, rt, rm = rb.blend_fwd_ref(attr16, bins, ntx, nty, tile, mode, sup,
+                                  tile0)
     torch.cuda.synchronize()
     rows = TIGHT_ROWS[mode]
     err = max(float((ko[:, rows] - ro[:, rows]).abs().max()),
@@ -345,7 +374,7 @@ def unrolled(torch, attr16, bins):
 
 
 def compare_bwd(torch, rb, attr16, bins, ntx, nty, mode, sup=256, label="",
-                seed=0, tile=16):
+                seed=0, tile=16, tile0=0):
     """Backward kernel vs its plain version on the same card inputs, with
     random cotangents: per slot (identity table, no atomics between
     slots) and per Gaussian (the real table, atomics). Tolerance: 2e-4 of
@@ -354,11 +383,12 @@ def compare_bwd(torch, rb, attr16, bins, ntx, nty, mode, sup=256, label="",
     launches relative to the column magnitude)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     T, P = bins.counts.shape[0], tile * tile
-    out, trans, _ = rb.blend_fwd(attr16, bins, ntx, nty, tile, mode, sup)
+    out, trans, _ = rb.blend_fwd(attr16, bins, ntx, nty, tile, mode, sup,
+                                 tile0)
     g_out = torch.randn((T, 8, P), device="cuda", generator=gen)
     g_trans = torch.randn((T, 1, P), device="cuda", generator=gen)
     rho = (g_out * out).sum(dim=1, keepdim=True)
-    args = (g_out, g_trans, rho, trans, ntx, nty, tile, mode, sup)
+    args = (g_out, g_trans, rho, trans, ntx, nty, tile, mode, sup, tile0)
     ref = rb.blend_bwd_ref(attr16, bins, *args)              # (T, Kmax, 16)
     rows, ident = unrolled(torch, attr16, bins)
     slot = rb.blend_bwd(rows, ident, *args)
@@ -2734,6 +2764,489 @@ def small_options(torch, rb):
     return launches
 
 
+def check_tile_offset(torch, rb, attr16, bins, ntx, nty, mode):
+    """The forward and backward kernels on the second half of a real
+    table with tile0 = T / 2, against their plain versions at the usual
+    bars; the forward's rows equal the same rows of the whole table's
+    launch bit for bit. Returns (forward, backward) max abs errors."""
+    from pings_tpu_torch.ops.rasterize import TileBins
+
+    T = bins.counts.shape[0]
+    t0 = T // 2
+    half = TileBins(bins.gauss_tbl[t0:].contiguous(), bins.mask[t0:],
+                    bins.counts[t0:].contiguous(), bins.n_overflow)
+    label = f"tile0={t0}"
+    e_f = compare_blend(torch, rb, attr16, half, ntx, nty, mode, label=label,
+                        tile0=t0)
+    whole = rb.blend_fwd(attr16, bins, ntx, nty, 16, mode)
+    part = rb.blend_fwd(attr16, half, ntx, nty, 16, mode, tile0=t0)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "trans", "med"), part, whole):
+        if not torch.equal(a, b[t0:]):
+            raise AssertionError(f"{label} {mode}: {name} differs from rows "
+                                 f"{t0}.. of the whole table's launch")
+    e_b, _ = compare_bwd(torch, rb, attr16, half, ntx, nty, mode, label=label,
+                         tile0=t0)
+    log(f"kernel {mode} {label}: forward rows equal the whole table's bit "
+        "for bit")
+    return e_f, e_b
+
+
+def run_group(fn, world, args, timeout=300.0):
+    """``world`` spawned processes, rank r calling fn(rank, world, port,
+    out_dir, *args); returns their results in rank order. A rank that
+    fails, or a group that is not done in ``timeout`` seconds, has every
+    rank killed and the phase fail (the ranks print as they go)."""
+    import multiprocessing
+    import pickle
+    import socket
+    import tempfile
+
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=fn, args=(r, world, port, out_dir, *args))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.1)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"group of {world}: exit codes {codes} after "
+                                 f"{time.perf_counter() - t0:.1f} s (limit "
+                                 f"{timeout} s)")
+        out = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def restore(leaves, values):
+    """Copy ``values`` into the parameter tensors ``leaves``."""
+    import torch
+
+    with torch.no_grad():
+        for t, v in zip(leaves, values):
+            t.copy_(v)
+
+
+def host_ms(torch, fn, reps=3):
+    """fn() once to warm up, then ``reps`` timed calls (host clock, a
+    synchronize on both sides); returns (median ms, last result)."""
+    res = fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), res
+
+
+def bits_sum(torch, tensors):
+    """An exact checksum of float tensors: the sum of their bit patterns."""
+    return sum(int(t.detach().contiguous().view(torch.int32).long().sum())
+               for t in tensors)
+
+
+def leaf_errors(got, want):
+    """Per leaf, the largest |got - want| over the leaf's largest |want|
+    (0 where neither side has a gradient)."""
+    out = []
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            out.append(0.0)
+            continue
+        g = w * 0 if g is None else g
+        w = g * 0 if w is None else w
+        out.append(float((g - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def noise_bars(spread, tol=1e-5):
+    """Per leaf, the bar of a gradient against the 1-rank step's, relative
+    to the leaf's largest entry: ``tol``, or 10x the largest difference
+    between runs of the same 1-rank step on that leaf where that is more.
+    The backward and contribution kernels add with atomics in an order
+    that varies, and a leaf whose gradient is a small sum of large terms,
+    such as one fed by edge-on surfels, magnifies that: on an H100 two
+    runs of the same surfel-mode kitti step differ by 2.5e-6 to 1.6e-1 of
+    a leaf's largest entry, that spread varies 10x from one run of this
+    script to the next, and the sharded steps differed from the 1-rank
+    step by up to 3.2x the spread measured beside them."""
+    return [max(tol, 10 * r) for r in spread]
+
+
+def grads_close(name, errs, bars):
+    """Each leaf's gradient error (``leaf_errors``) within its bar;
+    returns the worst ratio of error to bar."""
+    loose = [(i, f"{e:.2e}", f"{b:.2e}") for i, (e, b) in enumerate(
+        zip(errs, bars)) if e > 1e-5]
+    if loose:
+        log(f"{name}: leaves beyond 1e-05 of their largest entry (leaf, "
+            f"error, bar): {loose}")
+    worst = max(e / b for e, b in zip(errs, bars))
+    if worst > 1:
+        raise AssertionError(f"{name}: a leaf's gradient beyond its bar")
+    return worst
+
+
+def signal_close(name, params, want, want_grads, bars, atol=5e-6,
+                 frac=1e-3):
+    """Parameters within ``atol`` of ``want`` where the reference gradient
+    is signal: above ``frac`` of its leaf's largest entry and above the
+    leaf's bar (Adam's eps of 1e-15 turns a gradient near zero into a full
+    step of either sign); returns the largest difference held."""
+    worst, n = 0.0, 0
+    for i, (p, w, g, b) in enumerate(zip(params, want, want_grads, bars)):
+        if g is None or not bool(g.abs().max() > 0):
+            continue
+        sig = g.abs() > max(frac, b) * g.abs().max()
+        if not bool(sig.any()):
+            continue
+        e = float((p[sig] - w[sig]).abs().max())
+        if e > atol:
+            raise AssertionError(f"{name}: leaf {i} parameters {e:.3e} apart "
+                                 "where the gradient is signal")
+        worst, n = max(worst, e), n + int(sig.sum())
+    if n < 100:
+        raise AssertionError(f"{name}: {n} entries with a signal gradient")
+    return worst
+
+
+def par_rank(rank, world, port, out_dir, *args):
+    """One rank of the parallel phase: ``par_work``'s results into
+    ``out_dir``/rank<rank>.pkl. A failure prints its traceback and ends
+    the process at once (its peers may wait in a collective; the group's
+    runner kills them)."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        res = par_work(rank, world, port, *args)
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def par_work(rank, world, port, backend, ref_dir, frames, scan, T_c_l, K,
+             view_fid):
+    """The parallel phase on one rank of a group of ``world`` (see
+    ``parallel``); the 1-rank group writes the steps' reference gradients
+    and parameters into ``ref_dir``, the others hold theirs to them."""
+    import torch
+    import torch.distributed as dist
+
+    from pings_tpu_torch.mapping import gs_mapper as gm
+    from pings_tpu_torch.mapping import pool as rp
+    from pings_tpu_torch.models.renderer import CamView, render
+    from pings_tpu_torch.models.spawn import local_indices, spawn_gaussians
+    from pings_tpu_torch.ops import raster_blend as rb
+    from pings_tpu_torch.ops import rasterize as rz
+    from pings_tpu_torch.parallel.distributed import (
+        all_gather_rows, all_reduce_mean, init_distributed, runtime_info,
+        shard_rows)
+    from pings_tpu_torch.parallel.mesh import (
+        make_dp_train_step, make_gauss_sharded_train_step, make_mesh,
+        render_gauss_sharded, render_sharded)
+
+    W, H = 640, 240
+    tag = f"parallel {world} rank {rank}:"
+    init_distributed(f"localhost:{port}", world, rank, backend=backend,
+                     device="cuda")
+    mesh = make_mesh()
+    res = {"info": runtime_info()}
+    cfg, system = train_setup(torch, KITTI, frames, scan)
+    for fid in sorted(frames):       # registers the 8 keyframes
+        run_train_gs(torch, system, frames, fid, 0)
+    tile, kmax = cfg.tile_size, cfg.max_gs_per_tile
+    kw = render_kw(cfg, "3d_gs")
+    bg = kw["bg"].cuda()
+    local, cam = view_setup(torch, cfg, system, system.all_poses[view_fid],
+                            T_c_l, K, W, H)
+
+    # single-process references on this rank (not counted)
+    with torch.no_grad():
+        ref = render(local, system.decoders, cam, W, H, **kw)
+        g = ref.gaussians
+        gs_args = (g.means, g.quats, g.scales, g.alphas, g.colors,
+                   g.valid, cam.T_c_w, cam.K, W, H)
+        ref_rs = rb.rasterize_fused(*gs_args, bg=bg, tile=tile,
+                                    max_span=64, max_per_tile=kmax)
+        p = rz.project_gaussians(*gs_args)
+        attr16 = rb.gauss_attr_matrix(p).contiguous()
+        bins = rz.bin_gaussians(p, W, H, tile=tile, max_span=64,
+                                max_per_tile=kmax)
+    T = bins.counts.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    wo = torch.randn((T, 8, tile * tile), device="cuda", generator=gen)
+    wt = torch.randn((T, 1, tile * tile), device="cuda", generator=gen)
+
+    def blend_grad(fn):
+        a = attr16.clone().requires_grad_(True)
+        out, trans, _ = fn(a)
+        ((out * wo).sum() + (trans * wt).sum()).backward()
+        return out.detach(), a.grad
+
+    ntx, nty = (W + tile - 1) // tile, (H + tile - 1) // tile
+    ref_out, ref_grad = blend_grad(lambda a: rb.BlendGaussians.apply(
+        a, bins, ntx, nty, tile, "3dgs", rb.SUPER))
+
+    # every rank's tables must be rank 0's: the tile-sharded render's,
+    # and the Gaussian-sharded render's from its gathered projection
+    with torch.no_grad():
+        shard = type(local)(*(shard_rows(x, mesh) for x in local))
+        origin = -cam.T_c_w[:3, :3].T @ cam.T_c_w[:3, 3]
+        vis = rz.mark_visible(shard.positions, cam.T_c_w, cam.K, W, H)
+        gl = spawn_gaussians(shard, system.decoders, origin, vis,
+                             **kw["spawn_kwargs"])
+        pl_ = rz.project_gaussians(gl.means, gl.quats, gl.scales,
+                                   gl.alphas, gl.colors, gl.valid,
+                                   cam.T_c_w, cam.K, W, H)
+        p_full = rz.ProjectedGaussians(*(all_gather_rows(x, mesh)
+                                         for x in pl_))
+        bins_g = rz.bin_gaussians(p_full, W, H, tile=tile, max_span=36,
+                                  max_per_tile=kmax)
+    sums = torch.tensor([[int(b.gauss_tbl.long().sum()),
+                          int((b.gauss_tbl.long() * torch.arange(
+                              1, b.gauss_tbl.numel() + 1, device="cuda"
+                          ).view_as(b.gauss_tbl)).sum()),
+                          int(b.counts.long().sum())]
+                         for b in (bins, bins_g)], device="cuda")
+    every = [torch.empty_like(sums) for _ in range(world)]
+    dist.all_gather(every, sums)
+    if any(not torch.equal(x, every[0]) for x in every):
+        raise AssertionError(f"{tag} tile tables differ across ranks: "
+                             f"{[x.tolist() for x in every]}")
+    res["tables"] = sums.tolist()
+
+    # the sharded paths (counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rb.reset_launches()
+    with torch.no_grad():
+        res["render_sharded_ms"], out_rs = host_ms(
+            torch, lambda: render_sharded(mesh, *gs_args, bg=bg, tile=tile,
+                                          max_per_tile=kmax))
+        res["gauss_sharded_ms"], out_gs = host_ms(
+            torch, lambda: render_gauss_sharded(
+                mesh, local, system.decoders, cam, W, H, bg=bg,
+                spawn_kwargs=kw["spawn_kwargs"], tile=tile,
+                max_per_tile=kmax))
+    errs = {}
+    for name, got, want in (("render_sharded", out_rs, ref_rs),
+                            ("render_gauss_sharded", out_gs, ref)):
+        e = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+             for f in ("rgb", "alpha", "depth")}
+        if not (e["rgb"] <= 1e-5 and e["alpha"] <= 1e-5
+                and e["depth"] <= 2e-4):
+            raise AssertionError(f"{tag} {name} vs one process: {e}")
+        errs[name] = e
+    sh_out, sh_grad = blend_grad(lambda a: rb.blend_gaussians_tile_sharded(
+        mesh, a, bins, W, H, tile=tile, mode="3dgs"))
+    if not torch.equal(sh_out, ref_out):
+        raise AssertionError(f"{tag} tile-sharded forward differs from "
+                             "the whole table's")
+    errs["blend_grad"] = scaled_err(f"{tag} tile-sharded attr16 gradient",
+                                    sh_grad, ref_grad)
+    res["errs"] = errs
+
+    # the data-parallel step over the 8 keyframes
+    system._ensure_gs(W, H)
+    opt, params = system._gs[0], system._gs[1]
+    leaves = list(gm.param_leaves(params))
+    snap = [t.detach().clone() for t in leaves]
+    pcs = sorted(system.campool.all_cams(), key=lambda c: c.frame_id)
+    stack = lambda f: torch.stack([getattr(c.cam, f) for c in pcs])
+    cams = CamView(stack("K"), stack("T_c_w"), stack("rgb"),
+                   stack("depth"), stack("sky"),
+                   torch.tensor([c.frame_id for c in pcs]))
+    slots = torch.tensor([c.slot for c in pcs], device="cuda")
+    local_idx = local_indices(system.m.local_mask, system._local_size,
+                              system.m.capacity)
+    sdf_batch = rp.pool_batch(
+        system.pool, torch.Generator(device="cuda").manual_seed(11),
+        cfg.bs, min(cfg.bs_new_sample, cfg.bs // 2))
+    freeze = max(frames) >= cfg.freeze_after_frame
+    dp = make_dp_train_step(cfg, opt, mesh, W, H, system._local_size)
+    args_dp = (params, system.m, system.decoders, local_idx, cams, slots,
+               sdf_batch, freeze)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    met = dp(*args_dp)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    res["dp"] = dict(
+        metrics={k: float(v) for k, v in met._asdict().items()},
+        n_cams=len(pcs), first_ms=first_ms,
+        grads=[t.grad.detach().clone() for t in leaves],
+        params=[t.detach().clone() for t in leaves])
+    if world == 1:      # the same step 3 times more from the same parameters
+        res["dp"]["spread"] = [0.0] * len(leaves)
+        for _ in range(3):
+            restore(leaves, snap)
+            dp(*args_dp)
+            res["dp"]["spread"] = list(map(
+                max, res["dp"]["spread"],
+                leaf_errors([t.grad for t in leaves], res["dp"]["grads"])))
+    bufs = [t.grad.detach().clone() for t in leaves]
+    res["allreduce_ms"], _ = host_ms(torch, lambda: all_reduce_mean(
+        bufs, mesh))
+    res["allreduce_bytes"] = sum(b.numel() * 4 for b in bufs)
+    res["dp_ms"], _ = host_ms(torch, lambda: dp(*args_dp), reps=2)
+
+    # the Gaussian-sharded step: one camera (the last keyframe), from
+    # the same starting parameters and a fresh optimizer
+    restore(leaves, snap)
+    cam_g = pcs[-1].cam
+
+    def gauss_step():
+        step = make_gauss_sharded_train_step(
+            cfg, gm.make_gs_optimizer(cfg, params), mesh, W, H,
+            system._local_size)
+        return step, float(step(params, system.m, system.decoders,
+                                local_idx, cam_g))
+
+    t0 = time.perf_counter()
+    gstep, psnr = gauss_step()
+    torch.cuda.synchronize()
+    grad_of = lambda: [None if t.grad is None else t.grad.detach().clone()
+                       for t in leaves]
+    res["gs"] = dict(psnr=psnr, first_ms=(time.perf_counter() - t0) * 1e3,
+                     grads=grad_of(),
+                     params=[t.detach().clone() for t in leaves])
+    if world == 1:
+        after = [t.detach().clone() for t in leaves]
+        res["gs"]["spread"] = [0.0] * len(leaves)
+        for _ in range(3):
+            restore(leaves, snap)
+            gauss_step()
+            res["gs"]["spread"] = list(map(
+                max, res["gs"]["spread"],
+                leaf_errors(grad_of(), res["gs"]["grads"])))
+        restore(leaves, after)
+    res["gs_ms"], _ = host_ms(torch, lambda: gstep(
+        params, system.m, system.decoders, local_idx, cam_g), reps=2)
+    torch.cuda.synchronize()
+    res["launches"] = {k: dict(v) for k, v in (
+        ("fwd", rb.LAUNCHES), ("bwd", rb.BWD_LAUNCHES),
+        ("contrib", rb.CONTRIB_LAUNCHES))}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the steps against the 1-rank group's (whose rank 0 writes them)
+    for step_ in ("dp", "gs"):
+        r_ = res[step_]
+        r_["param_bits"] = bits_sum(torch, r_["params"])
+        path = os.path.join(ref_dir, f"ref_{step_}.pt")
+        if world == 1:
+            torch.save({k: r_[k] for k in ("grads", "params", "spread")},
+                       path)
+        else:
+            want = torch.load(path)
+            bars = noise_bars(want["spread"])
+            r_["grad_err"] = grads_close(
+                f"{tag} {step_}", leaf_errors(r_["grads"], want["grads"]),
+                bars)
+            r_["param_err"] = signal_close(
+                f"{tag} {step_}", r_["params"], want["params"],
+                want["grads"], bars)
+        del r_["grads"], r_["params"]
+    return res
+
+
+def parallel(torch, frames, scan, T_c_l, K, view_fid):
+    """The parallel phase: groups of 1 (NCCL), 2 and 4 (gloo) ranks, all
+    on this one card, each rank running ``par_work``. Every rank's
+    sharded renders and tile-sharded blend are held against its own
+    one-process versions; the steps of the 2- and 4-rank groups against
+    the 1-rank group's; the parameters after a step equal on every rank.
+    Returns the launches of the sharded paths, summed over every rank."""
+    import tempfile
+
+    card = smi("name,power.limit")
+    launches = {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        for world, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
+            t0 = time.perf_counter()
+            ranks = run_group(par_rank, world, (
+                backend, ref_dir, frames, scan, T_c_l, K, view_fid))
+            wall = time.perf_counter() - t0
+            for step in ("dp", "gs"):
+                bits = {r[step]["param_bits"] for r in ranks}
+                if len(bits) != 1:
+                    raise AssertionError(f"parallel {world}: {step} "
+                                         f"parameters differ across ranks")
+            if world == 1:
+                ref = ranks[0]
+                for step in ("dp", "gs"):
+                    log(f"parallel 1: {step} step run to run, per leaf "
+                        "(relative to its largest entry): "
+                        + " ".join(f"{e:.1e}" for e in ref[step]["spread"]))
+            else:
+                for key, step in (("total", "dp"), ("psnr", "dp"),
+                                  ("psnr", "gs")):
+                    got = (ranks[0][step]["metrics"][key] if step == "dp"
+                           else ranks[0][step]["psnr"])
+                    want = (ref[step]["metrics"][key] if step == "dp"
+                            else ref[step]["psnr"])
+                    if not abs(got - want) <= 1e-4 * abs(want):
+                        raise AssertionError(
+                            f"parallel {world}: {step} {key} {got} against "
+                            f"{want} at 1 rank")
+            for r, res in enumerate(ranks):
+                for kind, counts in res["launches"].items():
+                    for mode, n in counts.items():
+                        launches[kind, mode] = launches.get(
+                            (kind, mode), 0) + n
+                dp, gs = res["dp"], res["gs"]
+                log(f"parallel {world} ({backend}) rank {r} [{card}; every "
+                    f"rank shares this one card]: render_sharded "
+                    f"{res['render_sharded_ms']:.3f} ms/view, "
+                    f"render_gauss_sharded {res['gauss_sharded_ms']:.3f} "
+                    f"ms/view, dp step {res['dp_ms']:.3f} ms ({dp['n_cams']} "
+                    f"cameras; first {dp['first_ms']:.1f}), gauss-sharded "
+                    f"step {res['gs_ms']:.3f} ms (first {gs['first_ms']:.1f}"
+                    f"), gradient all-reduce {res['allreduce_ms']:.3f} ms "
+                    f"({res['allreduce_bytes'] / 2 ** 20:.1f} MiB), peak "
+                    f"{res['peak_gib']:.3f} GiB; dp total "
+                    f"{dp['metrics']['total']:.6f} psnr "
+                    f"{dp['metrics']['psnr']:.5f}, gauss step psnr "
+                    f"{gs['psnr']:.5f}; vs 1 rank (gradients: worst ratio "
+                    f"to the bar; parameters: largest difference where the "
+                    f"gradient is signal): dp {dp.get('grad_err', 0.0):.2e} "
+                    f"/ {dp.get('param_err', 0.0):.2e}, gauss step "
+                    f"{gs.get('grad_err', 0.0):.2e} / "
+                    f"{gs.get('param_err', 0.0):.2e}; vs one process: "
+                    + ", ".join(f"{k} {v}" for k, v in res["errs"].items())
+                    + f"; tables {res['tables']}; launches "
+                    f"{res['launches']}; runtime_info {res['info']}")
+            log(f"parallel {world} ({backend}): group wall {wall:.1f} s")
+    log("parallel: the overheads of sharding on one card, not a scaling "
+        "result: every rank of every group shares one H100")
+    return launches
+
+
 def main():
     import torch
 
@@ -2908,6 +3421,10 @@ def main():
     c_3 = train_path(torch, rb, "kitti 3d_gs", sys_3, train_frames, 8)
     del sys_3
     torch.cuda.empty_cache()
+    # parallel/: the sharded renders and steps in groups of 1, 2 and 4
+    # ranks on this card, on the train cell's frames and the first view
+    l_p = parallel(torch, train_frames, scan, T_c_l_kitti, K_kitti,
+                   int(pick_k[0]))
     # SLAM from frame 0 through process_frame: the command line on kitti
     # with the pose graph on, loop closure on a small circuit, the small
     # LiDAR-only and GS-SLAM runs
@@ -2936,7 +3453,8 @@ def main():
             launches[kind, mode] = (launches.get((kind, mode), 0) + c[i]
                                     + sum(l_[mode][i] for l_ in (
                                         l_k, l_o, l_b, l_l, l_s, l_so, l_re,
-                                        l_cr, l_rt, l_ke)))
+                                        l_cr, l_rt, l_ke))
+                                    + l_p.get((kind, mode), 0))
 
     # 5. stages, real tables, kernel times --------------------------------
     log("SM clock before the kernel rounds (now, max): "
@@ -2964,6 +3482,11 @@ def main():
                                label=label)
         err["contrib", mode] = max(err["contrib", mode], e)
         rerun["contrib", mode] = max(rerun["contrib", mode], r)
+        if name == "kitti":      # the second half of the table, tile0 = 300
+            e_f, e_b = check_tile_offset(torch, rb, attr16, bins, ntx, nty,
+                                         mode)
+            err["fwd", mode] = max(err["fwd", mode], e_f)
+            err["bwd", mode] = max(err["bwd", mode], e_b)
         for kind in ("fwd", "bwd", "contrib"):
             results[name, mode, kind] = kernel_times(
                 torch, rb, attr16, bins, ntx, nty, mode, kind)

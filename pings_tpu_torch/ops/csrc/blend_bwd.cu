@@ -20,7 +20,8 @@
 // fails its gate have alpha = 0. The early stop is the forward kernel's:
 // at the start of every superblock of `sb` slots the block stops once no
 // pixel of the tile has T > 1e-4, so forward and backward stop at the same
-// slot; the slots it skips get no gradient.
+// slot; the slots it skips get no gradient. `tile0` offsets the pixels of
+// block t to tile t + tile0, as in the forward kernel.
 //
 // What bounds it. As the forward (see blend_fwd.cu for the rates): fp32
 // issue, not bytes and not matrix work. A slot-pixel with alpha > 0 costs
@@ -85,7 +86,7 @@ __device__ __forceinline__ void blend_bwd_tile(
     const float* __restrict__ g_out, const float* __restrict__ g_trans,
     const float* __restrict__ rho_in, const float* __restrict__ trans_final,
     float* __restrict__ d_attr16, int n, int kmax, int ntx, int tile, int sb,
-    int ch) {
+    int ch, int tile0) {
   const int P = blockDim.x;
   const int NW = P >> 5;
   float* rows = smem;
@@ -96,7 +97,7 @@ __device__ __forceinline__ void blend_bwd_tile(
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wl = tid & 31;
-  const Pixels pp = block_pixels(t, ntx, tile);
+  const Pixels pp = block_pixels(t + tile0, ntx, tile);
   const float px = pp.px, py = pp.py;
   // constants rounded from double as PyTorch rounds a Python float
   const float alpha_max = (float)0.999;
@@ -258,19 +259,19 @@ blend_bwd_kernel(const float* __restrict__ attr16,
                  const float* __restrict__ rho_in,
                  const float* __restrict__ trans_final,
                  float* __restrict__ d_attr16, int n, int kmax, int ntx,
-                 int tile, int sb, int ch) {
+                 int tile, int sb, int ch, int tile0) {
   extern __shared__ __align__(16) float smem[];
   blend_bwd_tile<SURFEL>(blockIdx.x, smem, attr16, gauss_tbl, counts, g_out,
                          g_trans, rho_in, trans_final, d_attr16, n, kmax, ntx,
-                         tile, sb, ch);
+                         tile, sb, ch, tile0);
 }
 
 template <bool SURFEL, int MAXT>
 int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
               const void* g_out, const void* g_trans, const void* rho,
               const void* trans_final, void* d_attr16, int n, int T,
-              int kmax, int ntx, int tile, int sb, int ch, size_t bytes,
-              cudaStream_t stream) {
+              int kmax, int ntx, int tile, int sb, int ch, int tile0,
+              size_t bytes, cudaStream_t stream) {
   auto kernel = blend_bwd_kernel<SURFEL, MAXT>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -281,7 +282,7 @@ int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
       (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
       (const float*)g_out, (const float*)g_trans, (const float*)rho,
       (const float*)trans_final, (float*)d_attr16, n, kmax, ntx, tile, sb,
-      ch);
+      ch, tile0);
   return (int)cudaGetLastError();
 }
 
@@ -289,7 +290,7 @@ template <bool SURFEL>
 int launch(const void* attr16, const void* gauss_tbl, const void* counts,
            const void* g_out, const void* g_trans, const void* rho,
            const void* trans_final, void* d_attr16, int n, int T, int kmax,
-           int ntx, int tile, int sb, void* stream) {
+           int ntx, int tile, int sb, int tile0, void* stream) {
   const int P = tile * tile;
   const int NW = P / 32;
   // a chunk: at most one slot per lane, one superblock, and one 16-byte
@@ -303,11 +304,11 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
   if (P <= 256)
     return launch_as<SURFEL, 256>(attr16, gauss_tbl, counts, g_out, g_trans,
                                   rho, trans_final, d_attr16, n, T,
-                                  kmax, ntx, tile, sb, ch, bytes,
+                                  kmax, ntx, tile, sb, ch, tile0, bytes,
                                   (cudaStream_t)stream);
   return launch_as<SURFEL, 1024>(attr16, gauss_tbl, counts, g_out, g_trans,
                                  rho, trans_final, d_attr16, n, T,
-                                 kmax, ntx, tile, sb, ch, bytes,
+                                 kmax, ntx, tile, sb, ch, tile0, bytes,
                                  (cudaStream_t)stream);
 }
 
@@ -318,10 +319,10 @@ extern "C" int blend_bwd_surfel(const void* attr16, const void* gauss_tbl,
                                 const void* g_trans, const void* rho,
                                 const void* trans_final, void* d_attr16,
                                 int n, int T, int kmax, int ntx, int tile,
-                                int sb, void* stream) {
+                                int sb, int tile0, void* stream) {
   return launch<true>(attr16, gauss_tbl, counts, g_out, g_trans, rho,
                       trans_final, d_attr16, n, T, kmax, ntx, tile, sb,
-                      stream);
+                      tile0, stream);
 }
 
 extern "C" int blend_bwd_3dgs(const void* attr16, const void* gauss_tbl,
@@ -329,8 +330,8 @@ extern "C" int blend_bwd_3dgs(const void* attr16, const void* gauss_tbl,
                               const void* g_trans, const void* rho,
                               const void* trans_final, void* d_attr16,
                               int n, int T, int kmax, int ntx, int tile,
-                              int sb, void* stream) {
+                              int sb, int tile0, void* stream) {
   return launch<false>(attr16, gauss_tbl, counts, g_out, g_trans, rho,
                        trans_final, d_attr16, n, T, kmax, ntx, tile, sb,
-                       stream);
+                       tile0, stream);
 }

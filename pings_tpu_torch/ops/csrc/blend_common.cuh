@@ -33,7 +33,8 @@ constexpr float EXT_LOG_SLACK = 0.01f;
 // The pixels of a block. A warp owns an 8 x 4 block of pixels of the tile
 // (warps side by side along x, then down), so that its rectangle of pixel
 // centres is compact; `pix` is the pixel's row-major index in the tile, the
-// position of its value in the (T, C, P) outputs.
+// position of its value in the (T, C, P) outputs. `t` is the tile's global
+// index in the image (a sharded table adds its offset).
 struct Pixels {
   float px, py;            // this lane's pixel centre, global
   float wx0, wx1, wy0, wy1;  // the warp's pixel centres span these

@@ -18,7 +18,12 @@
 // of `sb` slots the block stops once no pixel of the tile has T > 1e-4 (one
 // __syncthreads_or); no pixel stops on its own. Outputs use the Pallas
 // kernels' layout: out (T, 8, P), trans (T, 1, P), med (T, 1, P), P =
-// tile^2, row-major in the tile.
+// tile^2, row-major in the tile. `tile0` is the global index of the
+// table's first tile (tile0_ref of the Pallas kernels): 0 for a whole
+// image, the shard's offset when the table is a slice of the image's tiles
+// (raster_blend.blend_gaussians_tile_sharded). Block t reads row t of the
+// table and writes row t of the outputs; its pixels are those of tile
+// t + tile0.
 //
 // What bounds it. An H100 SXM issues 33.5 T plain fp32 lane instructions a
 // second (67 TFLOP/s counts an FMA as two; this file is built with
@@ -74,10 +79,10 @@ __device__ __forceinline__ void blend_fwd_tile(
     const int* __restrict__ gauss_tbl, const int* __restrict__ counts,
     float* __restrict__ out, float* __restrict__ trans_out,
     float* __restrict__ med_out, int n, int kmax, int ntx, int tile, int sb,
-    int ch) {
+    int ch, int tile0) {
   const int tid = threadIdx.x;
   const int P = blockDim.x;
-  const Pixels pp = block_pixels(t, ntx, tile);
+  const Pixels pp = block_pixels(t + tile0, ntx, tile);
   const float px = pp.px, py = pp.py;
   const float trans_eps = (float)1e-4;   // rounded from double, as PyTorch
 
@@ -149,17 +154,19 @@ blend_fwd_kernel(const float* __restrict__ attr16,
                  const int* __restrict__ gauss_tbl,
                  const int* __restrict__ counts, float* __restrict__ out,
                  float* __restrict__ trans_out, float* __restrict__ med_out,
-                 int n, int kmax, int ntx, int tile, int sb, int ch) {
+                 int n, int kmax, int ntx, int tile, int sb, int ch,
+                 int tile0) {
   extern __shared__ __align__(16) float rows[];   // ch staged rows
   blend_fwd_tile<SURFEL>(blockIdx.x, rows, attr16, gauss_tbl, counts, out,
-                         trans_out, med_out, n, kmax, ntx, tile, sb, ch);
+                         trans_out, med_out, n, kmax, ntx, tile, sb, ch,
+                         tile0);
 }
 
 template <bool SURFEL, int MAXT>
 int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
               void* out, void* trans, void* med, int n, int T,
-              int kmax, int ntx, int tile, int sb, int ch, size_t bytes,
-              cudaStream_t stream) {
+              int kmax, int ntx, int tile, int sb, int ch, int tile0,
+              size_t bytes, cudaStream_t stream) {
   auto kernel = blend_fwd_kernel<SURFEL, MAXT>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -168,14 +175,15 @@ int launch_as(const void* attr16, const void* gauss_tbl, const void* counts,
   }
   kernel<<<T, tile * tile, bytes, stream>>>(
       (const float*)attr16, (const int*)gauss_tbl, (const int*)counts,
-      (float*)out, (float*)trans, (float*)med, n, kmax, ntx, tile, sb, ch);
+      (float*)out, (float*)trans, (float*)med, n, kmax, ntx, tile, sb, ch,
+      tile0);
   return (int)cudaGetLastError();
 }
 
 template <bool SURFEL>
 int launch(const void* attr16, const void* gauss_tbl, const void* counts,
            void* out, void* trans, void* med, int n, int T, int kmax,
-           int ntx, int tile, int sb, void* stream) {
+           int ntx, int tile, int sb, int tile0, void* stream) {
   const int P = tile * tile;
   // a chunk: at most one slot per lane, one superblock, and one 16-byte
   // copy per thread (sb is a power of two >= 8, P / 4 >= 16)
@@ -184,10 +192,10 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
   if (T <= 0) return 0;
   if (P <= 256)
     return launch_as<SURFEL, 256>(attr16, gauss_tbl, counts, out, trans, med,
-                                  n, T, kmax, ntx, tile, sb, ch, bytes,
-                                  (cudaStream_t)stream);
+                                  n, T, kmax, ntx, tile, sb, ch, tile0,
+                                  bytes, (cudaStream_t)stream);
   return launch_as<SURFEL, 1024>(attr16, gauss_tbl, counts, out, trans, med,
-                                 n, T, kmax, ntx, tile, sb, ch, bytes,
+                                 n, T, kmax, ntx, tile, sb, ch, tile0, bytes,
                                  (cudaStream_t)stream);
 }
 
@@ -196,15 +204,15 @@ int launch(const void* attr16, const void* gauss_tbl, const void* counts,
 extern "C" int blend_fwd_surfel(const void* attr16, const void* gauss_tbl,
                                 const void* counts, void* out, void* trans,
                                 void* med, int n, int T, int kmax, int ntx,
-                                int tile, int sb, void* stream) {
+                                int tile, int sb, int tile0, void* stream) {
   return launch<true>(attr16, gauss_tbl, counts, out, trans, med, n, T,
-                      kmax, ntx, tile, sb, stream);
+                      kmax, ntx, tile, sb, tile0, stream);
 }
 
 extern "C" int blend_fwd_3dgs(const void* attr16, const void* gauss_tbl,
                               const void* counts, void* out, void* trans,
                               int n, int T, int kmax, int ntx, int tile,
-                              int sb, void* stream) {
+                              int sb, int tile0, void* stream) {
   return launch<false>(attr16, gauss_tbl, counts, out, trans, nullptr, n, T,
-                       kmax, ntx, tile, sb, stream);
+                       kmax, ntx, tile, sb, tile0, stream);
 }

@@ -7,8 +7,8 @@ the pack step (:154-162), ``_blend_fwd_call`` (:624, here ``blend_fwd``),
 ``_blend_bwd_call`` + ``_unpack_grads`` (:660, :171, here ``blend_bwd``),
 the ``_blend_gaussians`` custom_vjp (:690-727, here ``BlendGaussians``),
 ``blend_contributions`` (:777-812, here ``blend_contrib``),
-``assemble_blend`` (:903-932) and ``rasterize_pallas`` (:819-900, here
-``rasterize_fused``).
+``assemble_blend`` (:903-932), ``rasterize_pallas`` (:819-900, here
+``rasterize_fused``) and ``blend_gaussians_tile_sharded`` (:935-971).
 
 Column layouts (per Gaussian, 16 float32):
   3dgs:   0-2 rgb, 3 depth, 4-6 normal, 7 const 1, 8-9 mu, 10-12 conic,
@@ -26,6 +26,11 @@ CUDA kernel (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``,
 ``blend_contrib_ref``) on CPU tensors; any other device raises. Launches
 are counted per kernel and mode in ``LAUNCHES``, ``BWD_LAUNCHES`` and
 ``CONTRIB_LAUNCHES``.
+
+The forward and backward take ``tile0``, the global index of the table's
+first tile (``tile0_ref`` of the Pallas kernels): a table may be a
+contiguous slice of the image's tiles, whose pixels stay global. Only
+``blend_gaussians_tile_sharded`` passes another value than 0.
 
 The backward kernel adds each slot's 16 column gradients straight into
 the per-Gaussian (N, 16) result with float4 atomics (no (T, Kmax, 16)
@@ -46,6 +51,8 @@ from pings_tpu_torch.ops.rasterize import (
     ProjectedGaussians, ProjectedSurfels, RenderOutput, TileBins,
     apply_pose_delta, bin_gaussians, project_gaussians, project_surfels,
     tile_pixels)
+from pings_tpu_torch.parallel.distributed import (
+    all_gather_rows, sum_gradient)
 
 SUPER = 256        # default superblock: the early-stop check interval
 NCH = 16
@@ -136,12 +143,13 @@ def superblock(kmax: int, sup: int = SUPER) -> int:
 
 
 def _check(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
-           tile: int, mode: str):
+           tile: int, mode: str, tile0: int = 0):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     T = bins.counts.shape[0]
-    if T != ntx * nty:
-        raise ValueError(f"{T} tiles in the table, {ntx}x{nty} in the image")
+    if tile0 < 0 or tile0 + T > ntx * nty:
+        raise ValueError(f"tiles {tile0} .. {tile0 + T - 1} in the table, "
+                         f"{ntx}x{nty} in the image")
     if attr16.dtype != torch.float32 or attr16.ndim != 2 \
             or attr16.shape[1] != NCH:
         raise ValueError(f"attr16 must be float32 (N, {NCH}), got "
@@ -198,23 +206,24 @@ def _lib(name: str, argtypes: dict) -> ctypes.CDLL:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = {"blend_fwd_surfel": [_VP] * 6 + [_CI] * 6 + [_VP],
-             "blend_fwd_3dgs": [_VP] * 5 + [_CI] * 6 + [_VP]}
-_BWD_ARGS = {f"blend_bwd_{m}": [_VP] * 8 + [_CI] * 6 + [_VP] for m in MODES}
+_FWD_ARGS = {"blend_fwd_surfel": [_VP] * 6 + [_CI] * 7 + [_VP],
+             "blend_fwd_3dgs": [_VP] * 5 + [_CI] * 7 + [_VP]}
+_BWD_ARGS = {f"blend_bwd_{m}": [_VP] * 8 + [_CI] * 7 + [_VP] for m in MODES}
 _CONTRIB_ARGS = {f"blend_contrib_{m}": [_VP] * 5 + [_CI] * 6 + [_VP]
                  for m in MODES}
 
 
 def blend_fwd(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
-              tile: int, mode: str, sup: int = SUPER):
+              tile: int, mode: str, sup: int = SUPER, tile0: int = 0):
     """(N, 16) attributes + tile table -> (T, 8, P) blended rows,
     (T, 1, P) final transmittance, (T, 1, P) median depth (zeros in 3dgs
-    mode). CUDA tensors launch the kernel; CPU tensors take the plain
-    version; any other device raises."""
-    _check(attr16, bins, ntx, nty, tile, mode)
+    mode); row t holds tile t + ``tile0`` of the image. CUDA tensors
+    launch the kernel; CPU tensors take the plain version; any other
+    device raises."""
+    _check(attr16, bins, ntx, nty, tile, mode, tile0)
     dev = attr16.device
     if dev.type == "cpu":
-        return blend_fwd_ref(attr16, bins, ntx, nty, tile, mode, sup)
+        return blend_fwd_ref(attr16, bins, ntx, nty, tile, mode, sup, tile0)
     attr16, tbl, counts = _cuda_inputs("blend_fwd", attr16, bins, align=16)
     T, kmax = tbl.shape
     sb = superblock(kmax, sup)
@@ -224,7 +233,7 @@ def blend_fwd(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
     med = (torch.empty if mode == "surfel" else torch.zeros)(
         (T, 1, P), dtype=torch.float32, device=dev)
     lib = _lib("blend_fwd", _FWD_ARGS)
-    ints = [_CI(v) for v in (attr16.shape[0], T, kmax, ntx, tile, sb)]
+    ints = [_CI(v) for v in (attr16.shape[0], T, kmax, ntx, tile, sb, tile0)]
     if mode == "surfel":
         rc = lib.blend_fwd_surfel(_ptr(attr16), _ptr(tbl), _ptr(counts),
                                   _ptr(out), _ptr(trans), _ptr(med), *ints,
@@ -251,16 +260,17 @@ def _check_cotangents(T: int, P: int, dev, **tensors):
 def blend_bwd(attr16: torch.Tensor, bins: TileBins, g_out: torch.Tensor,
               g_trans: torch.Tensor, rho: torch.Tensor,
               trans_final: torch.Tensor, ntx: int, nty: int, tile: int,
-              mode: str, sup: int = SUPER) -> torch.Tensor:
+              mode: str, sup: int = SUPER, tile0: int = 0) -> torch.Tensor:
     """Gradient of the blend with respect to ``attr16``: (N, 16).
 
     ``g_out`` (T, 8, P) and ``g_trans`` (T, 1, P) are the cotangents of
     the blended rows and the final transmittance, ``rho`` (T, 1, P) is
     sum_c g_c O_c over the saved forward rows and ``trans_final`` the
-    saved forward transmittance. CUDA tensors launch the kernel, which
-    adds every slot's row into the result with float atomics; CPU tensors
-    take ``blend_bwd_ref`` + ``unpack_grads``; any other device raises."""
-    _check(attr16, bins, ntx, nty, tile, mode)
+    saved forward transmittance; ``tile0`` as in ``blend_fwd``. CUDA
+    tensors launch the kernel, which adds every slot's row into the result
+    with float atomics; CPU tensors take ``blend_bwd_ref`` +
+    ``unpack_grads``; any other device raises."""
+    _check(attr16, bins, ntx, nty, tile, mode, tile0)
     dev = attr16.device
     T, kmax = bins.gauss_tbl.shape
     P = tile * tile
@@ -269,13 +279,13 @@ def blend_bwd(attr16: torch.Tensor, bins: TileBins, g_out: torch.Tensor,
     n = attr16.shape[0]
     if dev.type == "cpu":
         dtable = blend_bwd_ref(attr16, bins, g_out, g_trans, rho,
-                               trans_final, ntx, nty, tile, mode, sup)
+                               trans_final, ntx, nty, tile, mode, sup, tile0)
         return unpack_grads(dtable, bins, n)
     attr16, tbl, counts = _cuda_inputs("blend_bwd", attr16, bins, align=16)
     sb = superblock(kmax, sup)
     d_attr16 = torch.zeros((n, NCH), dtype=torch.float32, device=dev)
     lib = _lib("blend_bwd", _BWD_ARGS)
-    ints = [_CI(v) for v in (n, T, kmax, ntx, tile, sb)]
+    ints = [_CI(v) for v in (n, T, kmax, ntx, tile, sb, tile0)]
     g_out, g_trans, rho, trans_final = (
         x.contiguous() for x in (g_out, g_trans, rho, trans_final))
     rc = getattr(lib, f"blend_bwd_{mode}")(
@@ -408,18 +418,18 @@ def warp_culled(rows: torch.Tensor, mode: str, wx0, wx1, wy0,
 
 
 def blend_fwd_ref(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
-                  tile: int, mode: str, sup: int = SUPER):
+                  tile: int, mode: str, sup: int = SUPER, tile0: int = 0):
     """The plain PyTorch version of ``blend_fwd``: the same front-to-back
     scan, one slot at a time over all tiles and pixels, with the same
     early stop (a tile freezes at a superblock boundary once none of its
     pixels has T > 1e-4) and the same order of operations."""
-    _check(attr16, bins, ntx, nty, tile, mode)
+    _check(attr16, bins, ntx, nty, tile, mode, tile0)
     dev = attr16.device
     T, kmax = bins.gauss_tbl.shape
     sb = superblock(kmax, sup)
     P = tile * tile
     n = attr16.shape[0]
-    px, py = tile_pixels(T, ntx, tile, dev)
+    px, py = tile_pixels(T, ntx, tile, dev, tile0)
     counts = bins.counts.long()
     tbl = torch.clamp(bins.gauss_tbl.long(), 0, n - 1)
     surfel = mode == "surfel"
@@ -458,8 +468,8 @@ def blend_fwd_ref(attr16: torch.Tensor, bins: TileBins, ntx: int, nty: int,
 def blend_bwd_ref(attr16: torch.Tensor, bins: TileBins,
                   g_out: torch.Tensor, g_trans: torch.Tensor,
                   rho: torch.Tensor, trans_final: torch.Tensor, ntx: int,
-                  nty: int, tile: int, mode: str,
-                  sup: int = SUPER) -> torch.Tensor:
+                  nty: int, tile: int, mode: str, sup: int = SUPER,
+                  tile0: int = 0) -> torch.Tensor:
     """The plain PyTorch version of the backward kernel: per-slot
     attribute gradients (T, Kmax, 16) by the suffix identity
 
@@ -472,12 +482,12 @@ def blend_bwd_ref(attr16: torch.Tensor, bins: TileBins,
     slot at a time, front to back, in the kernel's order of operations;
     a superblock is skipped (zero rows) once no pixel of the tile has
     T > 1e-4, and slots at or past counts[t] give zero rows."""
-    _check(attr16, bins, ntx, nty, tile, mode)
+    _check(attr16, bins, ntx, nty, tile, mode, tile0)
     dev = attr16.device
     T, kmax = bins.gauss_tbl.shape
     sb = superblock(kmax, sup)
     n = attr16.shape[0]
-    px, py = tile_pixels(T, ntx, tile, dev)
+    px, py = tile_pixels(T, ntx, tile, dev, tile0)
     counts = bins.counts.long()
     tbl = torch.clamp(bins.gauss_tbl.long(), 0, n - 1)
     surfel = mode == "surfel"
@@ -583,11 +593,12 @@ class BlendGaussians(torch.autograd.Function):
     median depth is forward only; the table gets no gradient."""
 
     @staticmethod
-    def forward(ctx, attr16, bins, ntx, nty, tile, mode, sup):
-        out, trans, med = blend_fwd(attr16, bins, ntx, nty, tile, mode, sup)
+    def forward(ctx, attr16, bins, ntx, nty, tile, mode, sup, tile0=0):
+        out, trans, med = blend_fwd(attr16, bins, ntx, nty, tile, mode, sup,
+                                    tile0)
         ctx.save_for_backward(attr16, out, trans)
         ctx.bins = bins
-        ctx.args = (ntx, nty, tile, mode, sup)
+        ctx.args = (ntx, nty, tile, mode, sup, tile0)
         ctx.mark_non_differentiable(med)
         return out, trans, med
 
@@ -598,7 +609,34 @@ class BlendGaussians(torch.autograd.Function):
         rho = torch.sum(g_out * out, dim=1, keepdim=True)
         d_attr16 = blend_bwd(attr16, ctx.bins, g_out.contiguous(),
                              g_trans.contiguous(), rho, trans, *ctx.args)
-        return d_attr16, None, None, None, None, None, None
+        return d_attr16, None, None, None, None, None, None, None
+
+
+def blend_gaussians_tile_sharded(mesh, attr16: torch.Tensor, bins: TileBins,
+                                 width: int, height: int, tile: int = 16,
+                                 sup: int = SUPER, mode: str = "3dgs"):
+    """The fused blend with the tile axis sharded over ``mesh``
+    (``parallel.mesh.Mesh``): each rank blends its contiguous T / size
+    tiles with ``tile0`` = rank * T / size, so its pixels stay global; the
+    outputs are all-gathered back to (T, C, P) on every rank. ``attr16``
+    is replicated: its gradient is the sum of every rank's (the psum that
+    JAX's shard_map AD inserts), and the all-gather's backward keeps the
+    rank's own rows (every rank computes the same loss from the gathered
+    image). Requires T % size == 0. Returns (out, trans, med)."""
+    nd = mesh.size
+    T = bins.counts.shape[0]
+    if T % nd:
+        raise ValueError(f"tile count {T} must divide the mesh size {nd}")
+    t_local = T // nd
+    tile0 = mesh.rank * t_local
+    rows = slice(tile0, tile0 + t_local)
+    shard = TileBins(bins.gauss_tbl[rows], bins.mask[rows],
+                     bins.counts[rows], bins.n_overflow)
+    ntx = (width + tile - 1) // tile
+    nty = (height + tile - 1) // tile
+    out = BlendGaussians.apply(sum_gradient(attr16, mesh), shard, ntx, nty,
+                               tile, mode, sup, tile0)
+    return tuple(all_gather_rows(x, mesh) for x in out)
 
 
 def assemble_blend(out, trans, med, bg, width: int, height: int, tile: int,

@@ -381,11 +381,11 @@ def bin_gaussians(
 # Blending (the portable arbiters; the 2DGS blend)
 # ---------------------------------------------------------------------------
 
-def tile_pixels(T: int, ntx: int, tile: int, dev):
-    """Pixel centres of every tile: two (T, P) tensors, lane p = iy * tile
-    + ix of the tile's row-major pixels."""
+def tile_pixels(T: int, ntx: int, tile: int, dev, tile0: int = 0):
+    """Pixel centres of tiles tile0 .. tile0 + T - 1: two (T, P) tensors,
+    lane p = iy * tile + ix of the tile's row-major pixels."""
     lane = torch.arange(tile * tile, device=dev)
-    t_idx = torch.arange(T, device=dev)
+    t_idx = torch.arange(tile0, tile0 + T, device=dev)
     px = ((t_idx[:, None] % ntx) * tile + lane[None, :] % tile).float() + 0.5
     py = ((t_idx[:, None] // ntx) * tile + lane[None, :] // tile).float() + 0.5
     return px, py

@@ -37,6 +37,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -88,10 +89,25 @@ def cull_stats(torch, rb, attr16, bins, ntx, mode, tile=16):
             for k, v in tot.items()}
 
 
+def c_interface(path):
+    """The ``extern "C"`` entry points of a kernel source, whitespace
+    folded: (name, parameter list) pairs."""
+    text = re.sub(r"\s+", " ", Path(path).read_text())
+    return re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
+
+
 def build_baseline(_build, root, name):
     """Compile ``name``.cu of the checkout under ``root`` with this
-    checkout's compiler flags; returns the loaded library."""
+    checkout's compiler flags; returns the loaded library. A source whose
+    C interface differs from this checkout's (before the forward and
+    backward kernels took ``tile0``, say) is refused: this checkout's
+    wrappers call both."""
     csrc = root / "pings_tpu_torch" / "ops" / "csrc"
+    if c_interface(csrc / f"{name}.cu") != c_interface(
+            _build.CSRC / f"{name}.cu"):
+        raise SystemExit(f"{name}.cu under {root} has another C interface "
+                         "than this checkout's; time it with a checkout of "
+                         "the same interface")
     out = _build.BUILD / f"baseline-{name}.so"
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),

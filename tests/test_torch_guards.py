@@ -47,7 +47,8 @@ def test_port_imports_neither_jax_nor_pings_tpu():
                 "inspect_map", "data.monodepth", "data.bag_formats",
                 "data.rosbag", "data.ouster", "data.lidar", "data.kitti360",
                 "data.generic", "data.raw_formats", "ops.rasterize_ref",
-                "vis", "vis.packet", "vis.viewer", "vis.live"):
+                "vis", "vis.packet", "vis.viewer", "vis.live", "parallel",
+                "parallel.distributed", "parallel.mesh"):
         assert "pings_tpu_torch." + new in mods
     # the native library loaded is the port's build, never the JAX
     # package's pings_tpu/native/libpings.so
@@ -165,6 +166,17 @@ def test_training_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         refine_view_pose(Config(), None, None, None, 8, 8)
     assert init_pool(16, device="cpu").capacity == 16
+    # parallel/: the runtime and the mesh ask for the card by default
+    from pings_tpu_torch.parallel.distributed import init_distributed
+    from pings_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_distributed(device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_distributed("localhost:1", 1, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh()
+    assert make_mesh(device="cpu").size == 1
 
 
 def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
@@ -280,6 +292,17 @@ def test_blend_fwd_refuses_other_devices():
                     None)
     with pytest.raises(ValueError, match="cuda or cpu"):
         rb.blend_fwd(a, bins, 1, 1, 16, "surfel")
+    # a tile slice must lie inside the image: tile0 + T <= ntx * nty
+    a = torch.zeros(4, 16)
+    bins = TileBins(torch.zeros(2, 8, dtype=torch.int32), None,
+                    torch.zeros(2, dtype=torch.int32), None)
+    for tile0 in (-1, 3):
+        with pytest.raises(ValueError, match="tiles"):
+            rb.blend_fwd(a, bins, 2, 2, 16, "surfel", tile0=tile0)
+        with pytest.raises(ValueError, match="tiles"):
+            rb.blend_fwd_ref(a, bins, 2, 2, 16, "3dgs", tile0=tile0)
+    assert rb.blend_fwd(a, bins, 2, 2, 16, "surfel", tile0=2)[0].shape == (
+        2, 8, 256)
 
 
 @pytest.mark.parametrize("which", ["bwd", "contrib"])
