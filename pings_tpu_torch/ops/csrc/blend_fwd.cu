@@ -21,7 +21,7 @@
 // tile^2, row-major in the tile. `tile0` is the global index of the
 // table's first tile (tile0_ref of the Pallas kernels): 0 for a whole
 // image, the shard's offset when the table is a slice of the image's tiles
-// (raster_blend.blend_gaussians_tile_sharded). Block t reads row t of the
+// (parallel.mesh.blend_gaussians_tile_sharded). Block t reads row t of the
 // table and writes row t of the outputs; its pixels are those of tile
 // t + tile0.
 //

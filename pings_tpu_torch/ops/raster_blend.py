@@ -7,8 +7,9 @@ the pack step (:154-162), ``_blend_fwd_call`` (:624, here ``blend_fwd``),
 ``_blend_bwd_call`` + ``_unpack_grads`` (:660, :171, here ``blend_bwd``),
 the ``_blend_gaussians`` custom_vjp (:690-727, here ``BlendGaussians``),
 ``blend_contributions`` (:777-812, here ``blend_contrib``),
-``assemble_blend`` (:903-932), ``rasterize_pallas`` (:819-900, here
-``rasterize_fused``) and ``blend_gaussians_tile_sharded`` (:935-971).
+``assemble_blend`` (:903-932) and ``rasterize_pallas`` (:819-900, here
+``rasterize_fused``); ``blend_gaussians_tile_sharded`` (:935-971) is in
+``parallel.mesh``.
 
 Column layouts (per Gaussian, 16 float32):
   3dgs:   0-2 rgb, 3 depth, 4-6 normal, 7 const 1, 8-9 mu, 10-12 conic,
@@ -30,7 +31,8 @@ are counted per kernel and mode in ``LAUNCHES``, ``BWD_LAUNCHES`` and
 The forward and backward take ``tile0``, the global index of the table's
 first tile (``tile0_ref`` of the Pallas kernels): a table may be a
 contiguous slice of the image's tiles, whose pixels stay global. Only
-``blend_gaussians_tile_sharded`` passes another value than 0.
+``parallel.mesh.blend_gaussians_tile_sharded`` passes another value than
+0.
 
 The backward kernel adds each slot's 16 column gradients straight into
 the per-Gaussian (N, 16) result with float4 atomics (no (T, Kmax, 16)
@@ -51,8 +53,6 @@ from pings_tpu_torch.ops.rasterize import (
     ProjectedGaussians, ProjectedSurfels, RenderOutput, TileBins,
     apply_pose_delta, bin_gaussians, project_gaussians, project_surfels,
     tile_pixels)
-from pings_tpu_torch.parallel.distributed import (
-    all_gather_rows, sum_gradient)
 
 SUPER = 256        # default superblock: the early-stop check interval
 NCH = 16
@@ -610,33 +610,6 @@ class BlendGaussians(torch.autograd.Function):
         d_attr16 = blend_bwd(attr16, ctx.bins, g_out.contiguous(),
                              g_trans.contiguous(), rho, trans, *ctx.args)
         return d_attr16, None, None, None, None, None, None, None
-
-
-def blend_gaussians_tile_sharded(mesh, attr16: torch.Tensor, bins: TileBins,
-                                 width: int, height: int, tile: int = 16,
-                                 sup: int = SUPER, mode: str = "3dgs"):
-    """The fused blend with the tile axis sharded over ``mesh``
-    (``parallel.mesh.Mesh``): each rank blends its contiguous T / size
-    tiles with ``tile0`` = rank * T / size, so its pixels stay global; the
-    outputs are all-gathered back to (T, C, P) on every rank. ``attr16``
-    is replicated: its gradient is the sum of every rank's (the psum that
-    JAX's shard_map AD inserts), and the all-gather's backward keeps the
-    rank's own rows (every rank computes the same loss from the gathered
-    image). Requires T % size == 0. Returns (out, trans, med)."""
-    nd = mesh.size
-    T = bins.counts.shape[0]
-    if T % nd:
-        raise ValueError(f"tile count {T} must divide the mesh size {nd}")
-    t_local = T // nd
-    tile0 = mesh.rank * t_local
-    rows = slice(tile0, tile0 + t_local)
-    shard = TileBins(bins.gauss_tbl[rows], bins.mask[rows],
-                     bins.counts[rows], bins.n_overflow)
-    ntx = (width + tile - 1) // tile
-    nty = (height + tile - 1) // tile
-    out = BlendGaussians.apply(sum_gradient(attr16, mesh), shard, ntx, nty,
-                               tile, mode, sup, tile0)
-    return tuple(all_gather_rows(x, mesh) for x in out)
 
 
 def assemble_blend(out, trans, med, bg, width: int, height: int, tile: int,

@@ -7,8 +7,8 @@ and takes its own shard; the collectives of ``parallel.distributed``
 stand in for the ones ``shard_map`` and its autodiff insert:
 
 - **Tile-sharded render** (``render_sharded``): projection and binning on
-  the replicated Gaussian set on every rank; the blend with the tile axis
-  sharded (``raster_blend.blend_gaussians_tile_sharded``), its outputs
+  the replicated Gaussian set on every rank; the fused blend with the tile
+  axis sharded (``blend_gaussians_tile_sharded``), its outputs
   all-gathered.
 - **Gaussian-sharded render and step** (``render_gauss_sharded``,
   ``make_gauss_sharded_train_step``): each rank spawns and projects its
@@ -17,10 +17,11 @@ stand in for the ones ``shard_map`` and its autodiff insert:
 - **Data-parallel step** (``make_dp_train_step``): parameters replicated,
   the camera batch split over the ranks, one all-reduce of the gradients.
 
-The route rule is the JAX package's: a tile count that divides the mesh
-takes the fused blend (its CUDA kernels on the card, their plain versions
-on the CPU), any other the portable ``rasterize.blend_tiles`` on every
-rank, as JAX takes its XLA ``blend_tiles``. The steps follow the port's
+Every sharded blend is the fused blend of ``ops.raster_blend`` (its CUDA
+kernels on the card, their plain versions on the CPU), whatever the tile
+count: where it does not divide the mesh the last ranks blend one tile
+fewer (the JAX package takes its XLA ``blend_tiles`` there, having no
+kernel for a share of another size). The steps follow the port's
 ``make_gsdf_step``: parameters and the port's ``AdamW`` are updated in
 place, and the leaves keep the gradient the optimizer used.
 """
@@ -28,7 +29,7 @@ place, and the leaves keep the gradient the optimizer used.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -56,13 +57,12 @@ class Mesh:
     without a process group, where every collective is the identity),
     this process's ``rank`` in it (-1 outside it) and its ``device``."""
     group: Optional[object]
-    axis_names: Tuple[str, ...]
     size: int
     rank: int
     device: torch.device
 
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
+def make_mesh(n_devices: Optional[int] = None,
               device: str | torch.device = "cuda") -> Mesh:
     """A mesh over the first ``n_devices`` ranks of the process group
     (all of them by default). Without a process group only a mesh of one
@@ -75,7 +75,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
         if n_devices not in (None, 1):
             raise ValueError(f"a mesh of {n_devices} ranks needs a process "
                              "group (init_distributed)")
-        return Mesh(None, (axis,), 1, 0, dev)
+        return Mesh(None, 1, 0, dev)
     world = dist.get_world_size()
     n = n_devices or world
     if not 1 <= n <= world:
@@ -83,7 +83,54 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
     group = (dist.group.WORLD if n == world
              else dist.new_group(list(range(n))))
     rank = dist.get_rank()
-    return Mesh(group, (axis,), n, rank if rank < n else -1, dev)
+    return Mesh(group, n, rank if rank < n else -1, dev)
+
+
+# ---------------------------------------------------------------------------
+# The tile-sharded fused blend
+# ---------------------------------------------------------------------------
+
+def tile_shares(n_tiles: int, nd: int):
+    """The contiguous tile ranges of the ``nd`` ranks as (first, count):
+    n_tiles // nd tiles each, one more for the first n_tiles % nd ranks."""
+    if n_tiles < nd:
+        raise ValueError(f"{n_tiles} tiles cannot be shared by {nd} ranks")
+    base, rem = divmod(n_tiles, nd)
+    return [(r * base + min(r, rem), base + (r < rem)) for r in range(nd)]
+
+
+def blend_gaussians_tile_sharded(mesh: Mesh, attr16: torch.Tensor,
+                                 bins: rz.TileBins, width: int, height: int,
+                                 tile: int = 16, sup: int = rb.SUPER,
+                                 mode: str = "3dgs"):
+    """The fused blend with the tile axis sharded over ``mesh`` (the JAX
+    package's ``raster_pallas.blend_gaussians_tile_sharded``): each rank
+    blends its contiguous share of the T tiles (``tile_shares``) with
+    ``tile0`` its first tile's index, so its pixels stay global; the
+    outputs are all-gathered back to (T, C, P) on every rank (a share one
+    tile short is padded with a zero row for the gather and cropped after
+    it). ``attr16`` is replicated: its gradient is the sum of every rank's
+    (the psum that JAX's shard_map AD inserts), and the all-gather's
+    backward keeps the rank's own rows (every rank computes the same loss
+    from the gathered image). Returns (out, trans, med)."""
+    T = bins.counts.shape[0]
+    shares = tile_shares(T, mesh.size)
+    tile0, n = shares[mesh.rank]
+    rows = slice(tile0, tile0 + n)
+    shard = rz.TileBins(bins.gauss_tbl[rows], bins.mask[rows],
+                        bins.counts[rows], bins.n_overflow)
+    ntx = (width + tile - 1) // tile
+    nty = (height + tile - 1) // tile
+    out = rb.BlendGaussians.apply(sum_gradient(attr16, mesh), shard, ntx,
+                                  nty, tile, mode, sup, tile0)
+    most = shares[0][1]
+    if most * mesh.size == T:
+        return tuple(all_gather_rows(x, mesh) for x in out)
+    pad = lambda x: torch.cat([x, x.new_zeros((most - n,) + x.shape[1:])])
+    keep = torch.cat([torch.arange(r * most, r * most + c)
+                      for r, (_, c) in enumerate(shares)]).to(attr16.device)
+    return tuple(all_gather_rows(pad(x), mesh).index_select(0, keep)
+                 for x in out)
 
 
 # ---------------------------------------------------------------------------
@@ -95,12 +142,10 @@ def render_sharded(
     means3d, quats, scales, opacities, colors, valid,
     T_c_w, K, width: int, height: int,
     bg=None, tile: int = 16, max_span: int = 64, max_per_tile: int = 512,
-    chunk: int = 32,
 ) -> rz.RenderOutput:
     """Rasterize with the image tiles sharded over the mesh (3DGS). The
     Gaussians are replicated: every rank projects and bins all of them
-    and blends its slice of the tiles. The fused blend needs the tile
-    count to divide the mesh size (pad the image accordingly)."""
+    and blends its share of the tiles."""
     if bg is None:
         bg = torch.zeros(3, device=mesh.device)
     p = rz.project_gaussians(means3d, quats, scales, opacities, colors,
@@ -108,24 +153,14 @@ def render_sharded(
     base = rz.ProjectedGaussians(*(x.detach() for x in p))
     bins = rz.bin_gaussians(base, width, height, tile=tile,
                             max_span=max_span, max_per_tile=max_per_tile)
-    if _pallas_blend_ok(bins.gauss_tbl.shape[0], mesh.size):
-        return _pallas_blend_output(mesh, p, bins, bg, width, height, tile,
-                                    "3dgs")
-    return rz.blend_tiles(p, bins, bg, width, height, tile=tile, chunk=chunk)
+    return _blend_output(mesh, p, bins, bg, width, height, tile, "3dgs")
 
 
-def _pallas_blend_ok(n_tiles: int, nd: int) -> bool:
-    """The fused blend, sharded over the tile axis, where the tile count
-    divides the mesh (the JAX package's rule; the port's kernels have a
-    plain version on the CPU, where JAX needs its interpreter)."""
-    return n_tiles % nd == 0
-
-
-def _pallas_blend_output(mesh, p, bins, bg, width, height, tile, mode):
+def _blend_output(mesh, p, bins, bg, width, height, tile, mode):
     """Tile-sharded fused blend -> RenderOutput (zero contributions, as
     the JAX package's). ``p``: ProjectedGaussians."""
     attr16 = rb.gauss_attr_matrix(p)
-    out, trans, med = rb.blend_gaussians_tile_sharded(
+    out, trans, med = blend_gaussians_tile_sharded(
         mesh, attr16, bins, width, height, tile=tile, mode=mode)
     rgb, depth, alpha, normal, depth_median = rb.assemble_blend(
         out, trans, med, bg, width, height, tile, mode, normalize_depth=True)
@@ -156,14 +191,12 @@ def render_gauss_sharded(
     width: int, height: int,
     bg=None, spawn_kwargs=None,
     tile: int = 16, max_span: int = 36, max_per_tile: int = 512,
-    chunk: int = 32,
 ) -> rz.RenderOutput:
     """Gaussian-primitive-sharded rendering (3DGS blend, as the JAX
     package's). Every rank gets the whole window ``local``; it spawns and
     projects only its L / size points (the MLP decode), the projected
     attributes are all-gathered, every rank bins them all and blends its
-    slice of the tiles (the portable blend on every rank where the tile
-    count does not divide the mesh)."""
+    share of the tiles."""
     spawn_kwargs = spawn_kwargs or {}
     L = local.positions.shape[0]
     if L % mesh.size:
@@ -188,15 +221,11 @@ def render_gauss_sharded(
     p_struct = rz.ProjectedGaussians(*(x.detach() for x in p_full))
     bins = rz.bin_gaussians(p_struct, width, height, tile=tile,
                             max_span=max_span, max_per_tile=max_per_tile)
-    if _pallas_blend_ok(bins.gauss_tbl.shape[0], mesh.size):
-        return _pallas_blend_output(mesh, p_full, bins, bg, width, height,
-                                    tile, "3dgs")
-    return rz.blend_tiles(p_full, bins, bg, width, height, tile=tile,
-                          chunk=chunk)
+    return _blend_output(mesh, p_full, bins, bg, width, height, tile, "3dgs")
 
 
 def make_gauss_sharded_train_step(cfg, optimizer, mesh: Mesh, width: int,
-                                  height: int, local_size: int):
+                                  height: int):
     """Model-parallel training: one camera per step, the spawn and
     projection sharded over the mesh's point axis through
     ``render_gauss_sharded``. The all-gather's backward keeps each rank's
@@ -206,7 +235,6 @@ def make_gauss_sharded_train_step(cfg, optimizer, mesh: Mesh, width: int,
 
     step(params, static_map, decoders, local_idx, cam) -> psnr, updating
     ``params`` (the leaves ``optimizer`` holds) in place."""
-    del local_size   # shapes are not compiled in; kept for the signature
     spawn_kwargs = spawn_kwargs_from_cfg(cfg)
     bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=mesh.device)
 
@@ -223,7 +251,7 @@ def make_gauss_sharded_train_step(cfg, optimizer, mesh: Mesh, width: int,
         res = render_gauss_sharded(
             mesh, local, d, cam, width, height, bg=bg,
             spawn_kwargs=spawn_kwargs, tile=cfg.tile_size,
-            max_per_tile=cfg.max_gs_per_tile, chunk=32)
+            max_per_tile=cfg.max_gs_per_tile)
         l1 = losses.l1_masked(res.rgb, cam.rgb)
         ds = dssim_loss(res.rgb, cam.rgb)
         photo = (1 - cfg.lambda_ssim) * l1 + cfg.lambda_ssim * ds
@@ -247,8 +275,7 @@ def _cam_at(cams: CamView, i: int) -> CamView:
     return CamView(*(x[i] for x in cams))
 
 
-def make_dp_train_step(cfg, optimizer, mesh: Mesh, width: int, height: int,
-                       local_size: int):
+def make_dp_train_step(cfg, optimizer, mesh: Mesh, width: int, height: int):
     """Data-parallel full joint GS+SDF training: each rank renders and
     differentiates its cameras of the batch with the single-device step's
     per-camera objective (``gs_mapper.make_cam_loss`` +
@@ -261,7 +288,6 @@ def make_dp_train_step(cfg, optimizer, mesh: Mesh, width: int, height: int,
     place. ``cams``: a CamView whose fields carry a leading batch axis B
     (B % size == 0; rank r takes cameras r B/size .. (r+1) B/size - 1);
     ``cam_slots``: (B,) exposure / pose-delta slot of each camera."""
-    del local_size   # shapes are not compiled in; kept for the signature
     cam_loss = make_cam_loss(cfg, width, height)
     batch_terms = make_sdf_batch_terms(cfg)
 

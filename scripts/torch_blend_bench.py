@@ -176,10 +176,10 @@ def main():
              None),
             ("kitti 3dgs", cs.KITTI, T_c_l, K_kitti, 640, 240, [40],
              "3d_gs")):
-        _, _, (cfg, system, view) = cs.main_path(
+        _, _, (cfg, system, views) = cs.main_path(
             torch, rb, name, run, tcl, K, W, H, pick + pick, gs_type=gs)
-        _, attr16, bins, ntx, nty = cs.stages(torch, cfg, system, view, W, H,
-                                              gs, reps=1)[:5]
+        _, attr16, bins, ntx, nty = cs.stages(torch, cfg, system, views[0],
+                                              W, H, gs, reps=1)[:5]
         tables[name] = (attr16.detach(), bins, ntx, nty,
                         "3dgs" if gs else "surfel")
         del system

@@ -71,6 +71,23 @@ def test_port_imports_neither_jax_nor_pings_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_ops_imports_nothing_of_parallel():
+    """The kernels' layer stands below the sharding layer: a fresh process
+    that imports every module of ``pings_tpu_torch.ops`` has loaded no
+    module of ``pings_tpu_torch.parallel``."""
+    ops = [m for m in _modules() if m.startswith("pings_tpu_torch.ops.")]
+    assert "pings_tpu_torch.ops.raster_blend" in ops
+    code = ("import importlib, sys\n"
+            f"for m in {ops!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.startswith('pings_tpu_torch.parallel'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
     """chip_smoke.py and scripts/torch_make_{kitti,replica,bag}_data.py
     (which write chip_smoke.py's kitti, replica and bag data) name no

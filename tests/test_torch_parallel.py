@@ -360,9 +360,10 @@ def test_gauss_sharded_render_matches_jax(world, payload, groups, single):
 def test_odd_tile_count_takes_the_portable_blend(world, payload, groups,
                                                  single):
     """At 112x48 (21 tiles, which divide neither 2 nor 4) both renders
-    take rasterize.blend_tiles on every rank: the tile-sharded render
-    against JAX's on its 8-device mesh, and both renders and the
-    Gaussian-sharded render's gradients (window features, two decoder
+    still take the fused blend (its plain versions here) on every rank,
+    in shares of unequal size: the tile-sharded render against JAX's on
+    its 8-device mesh (JAX's XLA blend_tiles there), and both renders and
+    the Gaussian-sharded render's gradients (window features, two decoder
     weights) against one process, at the bars above (gradients 1e-5 of
     their largest entry)."""
     cfg, m, decoders, cam, _ = world
@@ -384,6 +385,20 @@ def test_odd_tile_count_takes_the_portable_blend(world, payload, groups,
             np.testing.assert_allclose(got["rgb"], ref["rgb"], atol=2e-5)
             np.testing.assert_allclose(got["depth"], ref["depth"], atol=2e-4)
             _grads_close(got["grads"], ref["grads"])
+
+
+@pytest.mark.parametrize("n_tiles,nd,want", [
+    (32, 4, [(0, 8), (8, 8), (16, 8), (24, 8)]),
+    (21, 4, [(0, 6), (6, 5), (11, 5), (16, 5)]),
+    (3225, 2, [(0, 1613), (1613, 1612)]),
+    (4, 4, [(0, 1), (1, 1), (2, 1), (3, 1)]),
+])
+def test_tile_shares(n_tiles, nd, want):
+    """Contiguous shares that cover every tile once, one tile apart at
+    most; fewer tiles than ranks is refused."""
+    assert tmesh.tile_shares(n_tiles, nd) == want
+    with pytest.raises(ValueError):
+        tmesh.tile_shares(nd - 1, nd)
 
 
 def _signal_close(params, grads, want, atol=5e-6, frac=1e-3):
@@ -536,7 +551,7 @@ def test_init_distributed_and_runtime_info(groups, monkeypatch):
                          "backend", "device_kind"}
     for n in WORLDS:
         for rank, r in enumerate(groups(n)):
-            assert r["mesh"] == (n, rank, ("data",))
+            assert r["mesh"] == (n, rank)
             assert r["first"] == (1, 0 if rank == 0 else -1)
             assert r["info"]["process_index"] == rank
             assert r["info"]["process_count"] == n

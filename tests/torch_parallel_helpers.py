@@ -140,15 +140,15 @@ def build_state(pl):
 def case_blend(mesh, pl, mode):
     """blend_gaussians_tile_sharded forward, and the gradient of attr16
     under sum(out * wo) + sum(trans * wt)."""
-    from pings_tpu_torch.ops import raster_blend as rb
     from pings_tpu_torch.ops.rasterize import TileBins
+    from pings_tpu_torch.parallel.mesh import blend_gaussians_tile_sharded
 
     b = pl["blend"][mode]
     H, W = pl["cam_rgb"].shape[:2]
     a16 = _t(b["attr16"]).requires_grad_(True)
     bins = TileBins(_t(b["gauss_tbl"]), _t(b["mask"]), _t(b["counts"]),
                     _t(b["n_overflow"]))
-    out, trans, med = rb.blend_gaussians_tile_sharded(
+    out, trans, med = blend_gaussians_tile_sharded(
         mesh, a16, bins, W, H, tile=16, sup=128, mode=mode)
     loss = (out * _t(b["wo"])).sum() + (trans * _t(b["wt"])).sum()
     loss.backward()
@@ -186,10 +186,24 @@ ODD_W, ODD_H = 112, 48     # 7 x 3 = 21 tiles: divides neither 2 nor 4
 
 def case_odd_tiles(mesh, pl):
     """Both renders on an image whose tile count does not divide the mesh
-    (the portable blend on every rank): the tile-sharded render's rgb and
-    alpha; the Gaussian-sharded render's rgb and depth and the gradients
-    of the window's features and of two decoder weights under a fixed
-    loss."""
+    (shares of unequal size, the fused blend on every rank; the portable
+    ``rasterize.blend_tiles`` raises if called): the tile-sharded render's
+    rgb and alpha; the Gaussian-sharded render's rgb and depth and the
+    gradients of the window's features and of two decoder weights under a
+    fixed loss."""
+    from pings_tpu_torch.ops import rasterize as rz
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a sharded render took rasterize.blend_tiles")
+
+    saved, rz.blend_tiles = rz.blend_tiles, refuse
+    try:
+        return _odd_tiles(mesh, pl)
+    finally:
+        rz.blend_tiles = saved
+
+
+def _odd_tiles(mesh, pl):
     from pings_tpu_torch.models.spawn import LocalPointData
     from pings_tpu_torch.parallel.mesh import (
         render_gauss_sharded, render_sharded)
@@ -241,8 +255,7 @@ def case_gauss_step(mesh, pl):
     cfg, m, dec, cam = build_state(pl)
     H, W = pl["cam_rgb"].shape[:2]
     params, opt = _train_state(cfg, m, dec)
-    step = make_gauss_sharded_train_step(cfg, opt, mesh, W, H,
-                                         cfg.max_local_points)
+    step = make_gauss_sharded_train_step(cfg, opt, mesh, W, H)
     psnr = float(step(params, m, dec, _t(pl["local_idx"]), cam))
     p, g = _leaves(params)
     return dict(psnr=psnr, params=p, grads=g)
@@ -261,7 +274,7 @@ def case_dp_step(mesh, pl):
     rep = lambda x: torch.stack([x] * B)
     cams = CamView(rep(cam.K), rep(cam.T_c_w), _t(dp["rgb"]),
                    rep(cam.depth), rep(cam.sky), torch.zeros(B, dtype=int))
-    step = make_dp_train_step(cfg, opt, mesh, W, H, cfg.max_local_points)
+    step = make_dp_train_step(cfg, opt, mesh, W, H)
     met = step(params, m, dec, _t(pl["local_idx"]), cams,
                _t(dp["cam_slots"]), tuple(_t(x) for x in dp["sdf_batch"]),
                False)
@@ -276,13 +289,12 @@ def port_cases(rank, pl):
     from pings_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device="cpu")
-    tiles = make_mesh(axis="tile", device="cpu")
     first = make_mesh(1, device="cpu")      # a sub-group: rank 0 alone
     _, _, dec, cam = build_state(pl)
     return dict(
-        info=runtime_info(), mesh=(mesh.size, mesh.rank, mesh.axis_names),
+        info=runtime_info(), mesh=(mesh.size, mesh.rank),
         first=(first.size, first.rank),
-        blend={mode: case_blend(tiles, pl, mode)
+        blend={mode: case_blend(mesh, pl, mode)
                for mode in ("3dgs", "surfel")},
         render_sharded=case_render_sharded(mesh, pl),
         gauss_render=case_gauss_render(mesh, pl, dec, cam),
