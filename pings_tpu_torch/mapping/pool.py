@@ -82,8 +82,9 @@ def pool_insert(pool: ReplayPool, s: SdfSamples, cur_ts: int,
                 rnd: Optional[torch.Tensor] = None) -> ReplayPool:
     """Insert the valid samples, in place: they fill the tail from
     ``count`` while room remains; those that do not fit overwrite random
-    existing slots. ``rnd``: (n,) slot draws in [0, max(count, 1)) to use
-    instead of the generator's."""
+    existing slots, the last of those that drew a slot taking it.
+    ``rnd``: (n,) slot draws in [0, max(count, 1)) to use instead of the
+    generator's."""
     P = pool.capacity
     n = s.points.shape[0]
     valid = s.valid
@@ -95,6 +96,14 @@ def pool_insert(pool: ReplayPool, s: SdfSamples, cur_ts: int,
         rnd = _randint(gen, n, torch.clamp_min(count, 1))
     dest = torch.where(rank < tail_room, count + rank, rnd.long())
     keep = valid & (dest < P)
+    # overflow samples that drew the same slot: the last of them takes it,
+    # whole (on the card the writes of one index would race, each field
+    # on its own, and a slot could keep one sample's point and another's
+    # label)
+    order = torch.arange(n, device=dest.device)
+    last = torch.full((P,), -1, dtype=torch.int64, device=dest.device)
+    last.scatter_reduce_(0, dest[keep], order[keep], reduce="amax")
+    keep = keep & (last[dest.clamp(0, P - 1)] == order)
     d = dest[keep]
     pool.points[d] = s.points[keep]
     pool.sdf_label[d] = s.sdf_label[keep]

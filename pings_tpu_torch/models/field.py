@@ -3,8 +3,8 @@
 Counterpart of ``pings_tpu/models/field.py``: ``sdf_from_query`` (:25),
 ``color_from_query`` (:33), ``sdf_at`` (:38), ``color_at`` (:59),
 ``dynamic_mask_from`` (:67), ``dynamic_points`` (:80), ``sem_at`` (:95),
-``check_invalid_gs`` (:106-136), ``sdf_grad_numerical_nn`` (:139-156) and
-``sdf_grad_analytical`` (:171-192). Decoding is per neighbour (feature +
+``check_invalid_gs`` (:106-136), ``sdf_grad_numerical_nn`` (:139-156),
+``sdf_grad_numerical`` (:159-168) and ``sdf_grad_analytical`` (:171-192). Decoding is per neighbour (feature +
 relative offset); the K predictions are blended with the query's IDW
 weights.
 """
@@ -140,6 +140,18 @@ def sdf_grad_numerical_nn(m, decoders, pts: torch.Tensor,
     s, _, _ = sdf_from_query(decoders, q, sigma_scale)
     s = s.reshape(n, 6)
     return (s[:, :3] - s[:, 3:]) / (2.0 * delta)
+
+
+def sdf_grad_numerical(m, decoders, pts: torch.Tensor, sigma_scale: float,
+                       delta: float, k: int = 6, stencil_r: int = 1,
+                       search_alpha: float = 0.2,
+                       use_local_mask: bool = False) -> torch.Tensor:
+    """Central-difference SDF gradient: one neighbour search at the
+    centres, then ``sdf_grad_numerical_nn``'s 6 light evaluations."""
+    kidx = npm.query_neighbor_idx(m, pts, k, stencil_r, search_alpha,
+                                  use_local_mask)
+    return sdf_grad_numerical_nn(m, decoders, pts, kidx, sigma_scale, delta,
+                                 stencil_r, search_alpha)
 
 
 def sdf_grad_analytical(m, decoders, pts: torch.Tensor, sigma_scale: float,

@@ -9,7 +9,8 @@ has ``cap + 1`` rows; the last is the dump/padding row. The query
 ``eval_neighbors`` :338-374, ``query_feature`` :380-400) and
 ``accumulate_certainty`` (:403-409) are here too, and the loop-closure
 maintenance: ``adjust_map`` (:419-428), ``recreate_hash`` (:431-463) and
-``prune_map`` (:466-475).
+``prune_map`` (:466-475); ``memory_bytes`` (:476-480), the map's memory
+model.
 
 ``insert_points``, ``accumulate_certainty`` and the loop-closure functions
 write into the map's own tensors (where the JAX ones donate the map): the feature arrays are the leaves the optimizers hold, and their
@@ -447,3 +448,11 @@ def prune_map(m: NeuralPointMap, max_prune_certainty: float
     keep &= m.valid_mask
     m.valid_mask.copy_(keep)
     return m
+
+
+def memory_bytes(m: NeuralPointMap) -> int:
+    """The map's memory model: bytes of the active rows' features,
+    position, quaternion and colour (one device-to-host read of
+    ``count``)."""
+    per = (m.geo_feat.shape[1] + m.color_feat.shape[1] + 3 + 4 + 3) * 4
+    return int(m.count) * per

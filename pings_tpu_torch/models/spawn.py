@@ -1,7 +1,8 @@
 """Gaussian spawning: decode K Gaussians from each visible neural point.
 
 Counterpart of ``pings_tpu/models/spawn.py`` (``gather_local_data``
-:56-66, ``spawn_kwargs_from_cfg`` :84-98, ``spawn_gaussians`` :107-185):
+:56-66, ``empty_spawned`` :69-81, ``spawn_kwargs_from_cfg`` :84-98,
+``spawn_gaussians`` :107-185):
 
 - xyz   = point + displacement_range * tanh(mlp), rotated into the point's
           local frame
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from pings_tpu_torch import resolve_device
 from pings_tpu_torch.models import decoder as dec
 from pings_tpu_torch.ops.transforms import (
     quat_multiply, quat_normalize, quat_rotate)
@@ -66,6 +68,23 @@ def gather_local_data(m, mask: torch.Tensor, size: int) -> LocalPointData:
         color_feat=m.color_feat[idx],
         rgb=m.rgb[idx],
         valid=idx < m.capacity,
+    )
+
+
+def empty_spawned(n: int, device: str | torch.device = "cuda"
+                  ) -> SpawnedGaussians:
+    """An all-invalid buffer of ``n`` Gaussians (unit quaternions, scales
+    1e-6, everything else zero)."""
+    dev = resolve_device(device)
+    zeros = lambda *shape: torch.zeros(shape, device=dev)
+    return SpawnedGaussians(
+        means=zeros(n, 3),
+        quats=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).repeat(n, 1),
+        scales=torch.full((n, 3), 1e-6, device=dev),
+        alphas=zeros(n),
+        colors=zeros(n, 3),
+        valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+        alpha_raw=zeros(n),
     )
 
 

@@ -2,8 +2,10 @@
 SE(3), the voxel hash, deskewing and the camera projection of a scan.
 
 Counterpart of ``pings_tpu/ops/transforms.py`` (``quat_normalize`` ..
-``quat_to_rotmat`` :32-76, ``rotmat_to_quat`` :79-115, ``quat_slerp`` :127-150,
-``so3_exp``/``skew``/``se3_exp`` :156-206, ``slerp_pose`` :218-240,
+``quat_to_rotmat`` :32-76 with ``safe_normalize`` :39 and
+``quat_conjugate`` :45, ``rotmat_to_quat`` :79-115, ``quat_slerp`` :127-150,
+``so3_exp``/``skew``/``se3_exp`` :156-206, ``se3_inverse`` :208,
+``slerp_pose`` :218-240,
 ``voxel_hash`` :241, ``voxel_down_sample_mask`` :254-281,
 ``project_points_to_cam`` :321, ``splat_depth_map`` :350,
 ``colorize_points`` :371-383, ``crop_range_mask`` :390-399,
@@ -24,6 +26,17 @@ HASH_PRIMES = (73856093, 19349669, 83492791)
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     n = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps)
     return q / n
+
+
+def safe_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit-normalize with a finite gradient at v = 0."""
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + eps)
+    return v / n
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
 
 
 def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -163,6 +176,17 @@ def se3_exp(xi: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of rigid transforms (..., 4, 4): [R^T, -R^T t]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    Ti = torch.zeros_like(T)
+    Ti[..., :3, :3] = R.mT
+    Ti[..., :3, 3] = -(R.mT @ t[..., None])[..., 0]
+    Ti[..., 3, 3] = 1.0
+    return Ti
 
 
 def slerp_pose(T0: torch.Tensor, T1: torch.Tensor, t) -> torch.Tensor:

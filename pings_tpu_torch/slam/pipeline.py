@@ -109,11 +109,13 @@ class SlamSystem:
         self.rng = np.random.default_rng(cfg.seed)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed + 1)
-        # the random numbers of the map update and the SDF-only step come
-        # from ``_gen`` unless ``draws`` supplies them: an object with
-        # ``map_update(n_points, pool) -> (sample_rays draws, pool_insert
-        # slots)`` and ``sdf_batches(iters, pool) -> [pool_batch draws]``
-        # (a parity test hands in the JAX package's numbers)
+        # the random numbers of the map update, the SDF-only step and the
+        # joint step's SDF batches come from ``_gen`` unless ``draws``
+        # supplies them: an object with ``map_update(n_points, pool) ->
+        # (sample_rays draws, pool_insert slots)``, ``sdf_batches(iters,
+        # pool) -> [pool_batch draws]`` and ``gs_batches(iters, pool) ->
+        # [pool_batch draws]`` (a parity test hands in the JAX package's
+        # numbers)
         self.draws = None
         # the merged world-frame cloud, one (M, 6) xyz+rgb array per frame
         # (save_merged_pc), and (depth, K, T_c_w, rgb) per keyframe for the
@@ -803,6 +805,8 @@ class SlamSystem:
         if gs_iters <= 0:
             return
         rep.metrics["gs_iters"] = gs_iters
+        batch_draws = (None if self.draws is None
+                       else self.draws.gs_batches(gs_iters, self.pool))
         met = None
         local_idx = local_indices(self.m.local_mask, self._local_size,
                                   self.m.capacity)
@@ -867,14 +871,18 @@ class SlamSystem:
             ent = bins_cache.get(ckey)
             use_bins = (ent is not None
                         and ent["uses"] < cfg.raster_rebin_every)
+            batch = ((self.pool, self._gen) if batch_draws is None
+                     else rp.pool_batch(self.pool, None, cfg.bs,
+                                        min(cfg.bs_new_sample, cfg.bs // 2),
+                                        draws=batch_draws[it]))
             met, (bins_out, means2d, contrib) = gstep(
                 params, self.m, self.decoders, local_idx, cam, pc.slot,
-                (self.pool, self._gen), freeze, surrounding=surrounding,
-                depth_w=depth_w,
+                batch, freeze, surrounding=surrounding, depth_w=depth_w,
                 bins=ent["bins"] if use_bins else None,
                 bin_means=ent["means"] if use_bins else None,
                 cached_contrib=ent["contrib"] if use_bins else None,
-                use_bins=use_bins, draw_batch=True, stage_hook=stage_hook)
+                use_bins=use_bins, draw_batch=batch_draws is None,
+                stage_hook=stage_hook)
             if use_bins:
                 ent["uses"] += 1
                 ent["bins"], ent["means"] = bins_out, means2d

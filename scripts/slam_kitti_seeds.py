@@ -30,8 +30,9 @@ The ATE is taken against the ground truth over the first ``--ate-frames``
 frames (default all) with no alignment, the trajectory anchored at the
 ground-truth start. With ``--sem-acc``, the share of the last frame's
 labelled points (label >= 0, a valid query) whose class ``field.sem_at``
-gives at the estimated pose is the label. Prints one JSON line per seed,
-and one with the spread over the seeds; with ``--run DIR``, first the same
+gives at the estimated pose is the label. Prints one JSON line per seed
+(with each frame's tracking flag and tracker iterations), and one with
+the spread over the seeds; with ``--run DIR``, first the same
 ATE of that committed run's odometry (``odom_poses_kitti.txt``). With
 ``--package torch`` the script imports nothing of JAX.
 """
@@ -143,7 +144,8 @@ def main():
                 sets, pgo_on=False, seed=seed, gs_on=gs == "on"))
             system = make(cfg)
             t0 = time.perf_counter()
-            valid = [system.process_frame(f).tracking_valid for f in frames]
+            reps = [system.process_frame(f) for f in frames]
+            valid = [r.tracking_valid for r in reps]
             ate = absolute_error(system.poses[:n_ate], gt[:n_ate],
                                  align=False)
             ates.append(ate["ate_trans_rmse_m"])
@@ -155,7 +157,9 @@ def main():
                 accs.append(extra["sem_acc"])
             print(json.dumps({
                 "package": args.package, "seed": seed, "gs": gs,
-                "valid": valid, "s": round(time.perf_counter() - t0, 1),
+                "valid": valid, "track_iter": [
+                    r.metrics.get("track_iter") for r in reps],
+                "s": round(time.perf_counter() - t0, 1),
                 **ate, **extra, "position_error_m": [
                     np.round(p[:3, 3] - g[:3, 3], 4).tolist()
                     for p, g in zip(system.poses, gt)]}), flush=True)

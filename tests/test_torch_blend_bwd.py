@@ -30,6 +30,7 @@ from pings_tpu.ops.rasterize import TileBins as JTileBins
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops import rasterize as tr
 from test_torch_raster_blend import COMMON, H, K, W, _scene, random_table
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 rp.INTERPRET = True  # the Pallas kernels run interpreted on the CPU
 

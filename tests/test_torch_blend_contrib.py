@@ -22,6 +22,7 @@ from pings_tpu.ops import rasterize as jr
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops import rasterize as tr
 from test_torch_raster_blend import H, K, W, _scene, random_table
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 rp.INTERPRET = True
 

@@ -30,6 +30,7 @@ from hypothesis import given, settings, strategies as st
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops.rasterize import TileBins
 from test_torch_raster_blend import random_table
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 W, H = 64, 48       # the image of the pixel grids below
 GEOM = {"surfel": (6, 7, 8, 9, 10, 11), "3dgs": (8, 9, 10, 11, 12, 13)}

@@ -34,6 +34,7 @@ from pings_tpu.ops.rasterize_ref import rasterize_ref as j_ref
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops import rasterize as tr
 from pings_tpu_torch.ops.rasterize_ref import rasterize_ref as t_ref
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 W, H = 64, 48
 K = np.array([[60.0, 0, 32.0], [0, 60.0, 24.0], [0, 0, 1.0]], np.float32)

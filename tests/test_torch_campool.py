@@ -12,6 +12,7 @@ from pings_tpu.models import renderer as jrd
 from pings_tpu_torch.config import Config as TConfig
 from pings_tpu_torch.mapping.campool import CamPool as TCamPool
 from pings_tpu_torch.models import renderer as trd
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 OVER = dict(img_pool_size=3, long_term_pool_size=4, seed=11)
 

@@ -13,6 +13,7 @@ import torch
 from pings_tpu.config import Config
 from pings_tpu.models import decoder as jd
 from pings_tpu_torch.models import decoder as td
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

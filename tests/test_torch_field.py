@@ -19,6 +19,7 @@ from pings_tpu_torch.models import field as tfield
 from pings_tpu_torch.models import neural_points as tnpm
 from test_torch_gs_step import _flat_dec
 from test_torch_query import _queries, build_maps
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 SIG = 0.55 * 0.06
 

@@ -43,6 +43,7 @@ from pings_tpu_torch.models import decoder as tdec
 from pings_tpu_torch.models import neural_points as tnpm
 from pings_tpu_torch.models import renderer as trd
 from test_gs_mapping import CENTER, RADIUS, sphere_color
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 W, H = 64, 48
 KMAT = np.array([[56.0, 0, 32], [0, 56.0, 24], [0, 0, 1]], np.float32)

@@ -13,6 +13,16 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 RUN = os.path.join(ROOT, "runs_validation", "replica_synth_20260822_050419")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: it runs early in the
+    suite, beside wall-clock tests of other processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _modules():
     pkg = os.path.join(ROOT, "pings_tpu_torch")
     out = []
@@ -48,7 +58,7 @@ def test_port_imports_neither_jax_nor_pings_tpu():
                 "data.rosbag", "data.ouster", "data.lidar", "data.kitti360",
                 "data.generic", "data.raw_formats", "ops.rasterize_ref",
                 "vis", "vis.packet", "vis.viewer", "vis.live", "parallel",
-                "parallel.distributed", "parallel.mesh"):
+                "parallel.distributed", "parallel.mesh", "bench"):
         assert "pings_tpu_torch." + new in mods
     # the native library loaded is the port's build, never the JAX
     # package's pings_tpu/native/libpings.so
@@ -374,17 +384,10 @@ def test_inspect_map_unported_flags_exit(tmp_path):
              "mesh_verts": ["--recon-3d"],
              "sdf_slice": ["--sdf-slice", "1.0"],
              "exported_points": ["--export-points", "rgb"]}
-    # one intra-op thread: this file runs early in the suite, beside
-    # wall-clock tests of other processes
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for key, flag in flags.items():
-            rep = main([RUN, "--device", "cpu", "--out", str(tmp_path / key),
-                        *flag])
-            assert key == "eval" or key in rep, (key, rep)
-    finally:
-        torch.set_num_threads(n_threads)
+    for key, flag in flags.items():
+        rep = main([RUN, "--device", "cpu", "--out", str(tmp_path / key),
+                    *flag])
+        assert key == "eval" or key in rep, (key, rep)
     assert (tmp_path / "exported_points" / "neural_points_rgb.ply").exists()
     if not torch.cuda.is_available():
         for flag in flags.values():

@@ -16,7 +16,7 @@ from pings_tpu.config import Config as JConfig
 from pings_tpu.models import neural_points as jnpm
 from pings_tpu_torch.config import Config as TConfig
 from pings_tpu_torch.models import neural_points as tnpm
-from torch_slam_helpers import map_to_torch
+from torch_slam_helpers import map_to_torch, one_torch_thread  # noqa: F401
 
 OVER = dict(max_points=700, buffer_size=512, voxel_size_m=0.3,
             feature_dim=8, color_feature_dim=6)

@@ -19,7 +19,8 @@ from pings_tpu.utils import pose as hp
 from pings_tpu_torch.models import neural_points as tnpm
 from pings_tpu_torch.ops import transforms as ttf
 from pings_tpu_torch.slam.pipeline import _transform_pool as t_transform_pool
-from torch_slam_helpers import configs, map_to_torch
+from torch_slam_helpers import (  # noqa: F401
+    configs, map_to_torch, one_torch_thread)
 
 
 def rotations(branch, n=200, seed=0):

@@ -13,6 +13,7 @@ from pings_tpu.models import neural_points as jnpm
 from pings_tpu.models import spawn as jsp
 from pings_tpu_torch.models import neural_points as tnpm
 from pings_tpu_torch.models import spawn as tsp
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 CAP = 6000
 

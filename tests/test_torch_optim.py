@@ -28,6 +28,7 @@ from pings_tpu_torch.models import decoder as tdec
 from pings_tpu_torch.models import neural_points as tnpm
 from test_torch_gs_step import (_flat_dec, _jleaves, _np_tree,
                                 _optax_state)
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 OVER = dict(max_points=256, buffer_size=1 << 10, feature_dim=4,
             color_feature_dim=4, geo_mlp_hidden_dim=8,

@@ -357,8 +357,8 @@ def test_gauss_sharded_render_matches_jax(world, payload, groups, single):
     assert float(single["gauss_render"]["alpha"].mean()) > 0.05
 
 
-def test_odd_tile_count_takes_the_portable_blend(world, payload, groups,
-                                                 single):
+def test_odd_tile_count_blends_unequal_shares_with_the_kernels(
+        world, payload, groups, single):
     """At 112x48 (21 tiles, which divide neither 2 nor 4) both renders
     still take the fused blend (its plain versions here) on every rank,
     in shares of unequal size: the tile-sharded render against JAX's on

@@ -19,6 +19,7 @@ from pings_tpu_torch.data import frame as tfr
 from pings_tpu_torch.data.synthetic import SyntheticDataset
 from pings_tpu_torch.ops import transforms as ttf
 from pings_tpu_torch.utils import pose as tp
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 
 def test_voxel_down_sample_mask_ties_and_masks(rng):

@@ -6,10 +6,11 @@ package's initial decoders and drawing the JAX package's random numbers
 (``SlamSystem.draws``). The frame-0 map (count and hash table) is equal;
 poses within 2 cm and 0.3 deg on frames 0 and 1, later frames within bars
 taken from a sweep over seeds (``POS_CM`` ...), the same tracking flags,
-map counts within 2% (4% on frame 3). A port-only GS run of 3 frames
-with 2 GS iterations a frame (plain versions of the kernels) reports a
-finite online PSNR. And ``save``: the port's checkpoint reads back in
-both packages."""
+map counts within 2% (4% on frame 3). With GS on, three frames of both
+packages with the joint step's SDF batches drawn alike too; a port-only
+GS run of 3 frames with 2 GS iterations a frame (plain versions of the
+kernels) reports a finite online PSNR. And ``save``: the port's
+checkpoint reads back in both packages."""
 
 import numpy as np
 import pytest
@@ -124,3 +125,30 @@ def test_gs_slam_port_only():
     geo = s.m.geo_feat
     assert geo in sdf_opt.state and geo in gs_opt.state
     assert sdf_opt.state[geo]["exp_avg"] is not gs_opt.state[geo]["exp_avg"]
+
+
+def test_gs_slam_with_jax_draws():
+    """GS on: three frames of ``"3:line"`` with 3 joint iterations a frame
+    in both packages, the port drawing the JAX package's numbers for the
+    map update, the SDF-only step of frame 0 and the joint step's SDF
+    batches (``JaxDraws.gs_batches``). The GS-SDF consistency terms are
+    off: on the CPU the JAX package renders through its XLA blend, which
+    gives no contributions. The cameras are drawn by both packages'
+    numpy pools alike. Poses within the bars of the SDF-only slice above,
+    the frame's last joint-step BCE within 2e-3 on frame 0 (the same state
+    and batches) and 0.02 after, the online PSNR within 0.15 dB: the two
+    blends (the JAX package's XLA one, the port's plain version of the
+    kernel) round apart and Adam's first steps magnify it (read here:
+    0.056, 0.065 and 0.044 dB; positions 0, 0.58 and 0.50 cm apart)."""
+    out, *_ = run_slice(
+        "3:line", gs_on=True, gs_iters=3, adaptive_iters=False,
+        lambda_gs_sdf_consist=0.0, lambda_gs_sdf_normal_consist=0.0)
+    for i, (jr, tr, jT, tT, jn, tn) in enumerate(out):
+        d = hp.se3_inv(jT) @ tT
+        assert 100 * np.linalg.norm(d[:3, 3]) < POS_CM[i], (i, d[:3, 3])
+        assert hp.rotation_angle_deg(d[:3, :3]) < ROT_DEG[i], i
+        assert tr.tracking_valid == jr.tracking_valid
+        assert tr.metrics["gs_iters"] == jr.metrics["gs_iters"] == 3
+        np.testing.assert_allclose(tr.metrics["sdf_bce"],
+                                   jr.metrics["sdf_bce"], rtol=BCE_REL[i])
+        assert abs(tr.metrics["gs_psnr"] - jr.metrics["gs_psnr"]) < 0.15

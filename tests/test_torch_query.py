@@ -21,6 +21,7 @@ from pings_tpu.models import neural_points as jnpm
 from pings_tpu.ops import transforms as jtf
 from pings_tpu_torch.models import neural_points as tnpm
 from pings_tpu_torch.ops import transforms as ttf
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 
 def build_maps(rng, n=1500, **over):

@@ -21,6 +21,7 @@ from pings_tpu.ops import raster_pallas as rp
 from pings_tpu.ops import rasterize as jr
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops import rasterize as tr
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 rp.INTERPRET = True  # the Pallas kernels run interpreted on the CPU
 

@@ -12,6 +12,7 @@ import torch
 
 from pings_tpu.ops import rasterize as jr
 from pings_tpu_torch.ops import rasterize as tr
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 W, H = 64, 48
 K = np.array([[60.0, 0, 32.0], [0, 60.0, 24.0], [0, 0, 1.0]], np.float32)

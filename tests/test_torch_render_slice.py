@@ -26,6 +26,7 @@ from pings_tpu_torch import inspect_map as tim
 from pings_tpu_torch.models import neural_points as tnpm
 from pings_tpu_torch.models import renderer as trd
 from pings_tpu_torch.models import spawn as tsp
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 RUN = os.path.join(os.path.dirname(__file__), "..", "runs_validation",
                    "replica_synth_20260822_050419")

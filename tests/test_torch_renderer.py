@@ -20,6 +20,7 @@ from pings_tpu.models import spawn as jsp
 from pings_tpu_torch.models import decoder as td
 from pings_tpu_torch.models import renderer as tr
 from pings_tpu_torch.models import spawn as tsp
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 W, H = 64, 48
 K = np.array([[60.0, 0, 32.0], [0, 60.0, 24.0], [0, 0, 1.0]], np.float32)

@@ -21,6 +21,7 @@ from pings_tpu.mapping import sampler as jsm
 from pings_tpu_torch.config import Config as TConfig
 from pings_tpu_torch.mapping import pool as trp
 from pings_tpu_torch.mapping import sampler as tsm
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 
@@ -140,6 +141,46 @@ def test_pool_insert_and_batch_match(rng):
     assert len(jb) == len(tb) == 7
     for a, b in zip(jb, tb):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_pool_insert_duplicate_slots_take_the_last_sample_whole():
+    """Overflow samples that draw the same slot: the last of them is
+    written there, every field of it (the JAX package leaves the winner
+    undefined; on the card each field's writes would race apart)."""
+    cap, n = 64, 400
+    tp = trp.init_pool(cap, device="cpu")
+    g = np.random.default_rng(3)
+    mk = lambda base: tsm.SdfSamples(
+        torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) + base,
+        torch.arange(n, dtype=torch.float32) + base,
+        torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) - base,
+        torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) * 2 + base,
+        torch.arange(n, dtype=torch.int32) + int(base),
+        torch.arange(n, dtype=torch.float32) * 3 + base,
+        torch.zeros(n, dtype=torch.bool),
+        torch.as_tensor(g.random(n) < 0.9))
+    s0 = mk(0)
+    tp = trp.pool_insert(tp, s0, 0, rnd=torch.zeros(n, dtype=torch.int64))
+    assert int(tp.count) == cap
+    s1 = mk(10000)
+    rnd = torch.as_tensor(g.integers(0, cap, n))
+    tp = trp.pool_insert(tp, s1, 1, rnd=rnd)
+    valid = s1.valid.numpy()
+    for slot in range(cap):
+        hits = np.flatnonzero(valid & (rnd.numpy() == slot))
+        if len(hits) == 0:
+            continue
+        i = hits[-1]
+        assert int(tp.ts[slot]) == 1
+        np.testing.assert_array_equal(tp.points[slot].numpy(),
+                                      s1.points[i].numpy())
+        assert float(tp.sdf_label[slot]) == float(s1.sdf_label[i])
+        np.testing.assert_array_equal(tp.color_label[slot].numpy(),
+                                      s1.color_label[i].numpy())
+        np.testing.assert_array_equal(tp.ray[slot].numpy(),
+                                      s1.normal_label[i].numpy())
+        assert int(tp.sem_label[slot]) == int(s1.sem_label[i])
+        assert float(tp.weight[slot]) == float(s1.weight[i])
 
 
 def test_pool_batch_generator_ranges():

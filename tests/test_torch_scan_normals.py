@@ -14,6 +14,7 @@ import torch
 from pings_tpu.ops import scan_normals as jsn
 from pings_tpu_torch.data import synthetic as tsyn
 from pings_tpu_torch.ops import scan_normals as tsn
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 
 def test_keys_equal(rng):

@@ -15,6 +15,7 @@ from pings_tpu.models import decoder as jd
 from pings_tpu.models import spawn as jsp
 from pings_tpu_torch.models import decoder as td
 from pings_tpu_torch.models import spawn as tsp
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -14,6 +14,7 @@ from pings_tpu.mapping import losses as jl
 from pings_tpu.ops import ssim as jssim
 from pings_tpu_torch.mapping import losses as tl
 from pings_tpu_torch.ops import ssim as tssim
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 H, W = 40, 56
 

@@ -19,6 +19,7 @@ from pings_tpu_torch.mapping.sampler import sample_rays_cfg
 from pings_tpu_torch.models import neural_points as tnpm
 from pings_tpu_torch.models.renderer import CamView
 from pings_tpu_torch.slam.pipeline import FrameReport
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 RUN = os.path.join(os.path.dirname(__file__), "..", "runs_validation",
                    "replica_synth_20260822_050419")

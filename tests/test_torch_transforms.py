@@ -10,6 +10,7 @@ import torch
 
 from pings_tpu.ops import transforms as jt
 from pings_tpu_torch.ops import transforms as tt
+from torch_slam_helpers import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 

@@ -68,9 +68,10 @@ def decoders_to_torch(decoders, device="cpu"):
 class JaxDraws:
     """The JAX package's random numbers for the port's ``SlamSystem.draws``
     hook: the same key flow as its ``SlamSystem`` (a key of seed + 1, split
-    once per map update and once per SDF-only step) and the same draws as
-    its ``sample_rays``, ``pool_insert`` and ``pool_batch``, so that both
-    packages sample the same rays and batches."""
+    once per map update, once per SDF-only step and once per frame of the
+    joint GS step) and the same draws as its ``sample_rays``,
+    ``pool_insert`` and ``pool_batch``, so that both packages sample the
+    same rays and batches."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -108,6 +109,28 @@ class JaxDraws:
         out = []
         for i in range(iters):
             k1, k2 = jax.random.split(jax.random.fold_in(key, i))
+            out.append((torch.from_numpy(np.array(jax.random.randint(
+                k1, (c.bs - bs_new,), 0, hi_h))),
+                torch.from_numpy(np.array(jax.random.randint(
+                    k2, (bs_new,), 0, hi_f)))))
+        return out
+
+
+    def gs_batches(self, iters, pool):
+        """The joint step's SDF batches of one frame: a key split into one
+        per iteration, each split again for the history and the fresh
+        slots (``pool_batch`` inside the JAX package's step)."""
+        import jax.numpy as jnp
+        import torch
+
+        c = self.cfg
+        bs_new = min(c.bs_new_sample, c.bs // 2)
+        keys = jax.random.split(self._next(), iters)
+        hi_h = jnp.int32(max(int(pool.count), 1))
+        hi_f = jnp.int32(max(int(pool.new_count), 1))
+        out = []
+        for k in keys:
+            k1, k2 = jax.random.split(k)
             out.append((torch.from_numpy(np.array(jax.random.randint(
                 k1, (c.bs - bs_new,), 0, hi_h))),
                 torch.from_numpy(np.array(jax.random.randint(
