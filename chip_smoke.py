@@ -126,7 +126,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
            within 1.5 dB of the JAX package's committed run; ms per mapped
            frame, peak memory, the files' sizes, the held-out numbers. (h)
            ``kitti eval``: ``inspect_map --eval --recon-3d`` on (a)'s run
-           directory, printed and not held.
+           directory, printed and not held. (h') ``validation``: the kitti
+           leg of ``scripts/torch_run_validation.py`` (``kitti_leg``: ``python
+           -m pings_tpu_torch configs/kitti_synth.yaml`` and ``python -m
+           pings_tpu_torch.inspect_map --eval --cam-refine`` in
+           subprocesses) on (a)'s 12 frames, into a temporary run
+           directory and results file: the subprocesses exit 0, the record
+           has 12 frames, is not aborted and has a finite ATE, and every
+           metric of every cam-refined view in ``gs_eval.csv`` is finite;
+           the record and the leg's seconds printed.
    The LiDAR options and the LiDAR loaders: (i) ``kitti options``: the
            scans of (a)'s 12 frames written anew by
            ``scripts/torch_make_kitti_data.py``'s ``write_frame`` with
@@ -2254,6 +2262,47 @@ def kitti_eval(torch, rb, run_dir, data):
     return launches
 
 
+def validation(kitti_data):
+    """The kitti leg of ``scripts/torch_run_validation.py`` on ``cli
+    kitti``'s frames (no second ray-cast), into a temporary run directory
+    and results file."""
+    import csv
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_run_validation as tv
+
+    tmp = tempfile.mkdtemp(prefix="pings_validation_")
+    out_dir = os.path.join(tmp, "runs")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    try:
+        rec = tv.kitti_leg(sys.executable, os.path.dirname(kitti_data),
+                           out_dir)
+    except subprocess.CalledProcessError as e:
+        raise AssertionError(f"validation: {e}") from None
+    wall = time.perf_counter() - t0
+    results = tv.merge_results(os.path.join(tmp, "results.json"),
+                               {"kitti_synth": rec})
+    with open(os.path.join(rec["run_dir"], "inspect", "gs_eval.csv")) as f:
+        rows = list(csv.DictReader(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"validation: kitti leg of scripts/torch_run_validation.py in "
+        f"{wall:.1f} s (cli {rec['wall_s']} s of it); record "
+        f"{json.dumps(results['kitti_synth'])}")
+    bad = [r["frame"] for r in rows
+           if not all(np.isfinite(float(v)) for k, v in r.items()
+                      if k not in ("frame", "split") and v != "")]
+    if (rec["frames"] != 12 or rec["aborted"]
+            or not np.isfinite(rec["ate_trans_rmse_m"])):
+        raise AssertionError(f"validation: record {rec}")
+    if len(rows) != 12 or bad:
+        raise AssertionError(f"validation: {len(rows)} evaluated views, "
+                             f"views {bad} not finite after cam-refine")
+    return wall
+
+
 def slam_small(torch, rb):
     """The JAX package's two pipeline bars on the synthetic world."""
     from pings_tpu_torch.data.synthetic import SyntheticDataset
@@ -3726,6 +3775,10 @@ def main():
     l_cr = cli_replica(torch, rb, replica)
     l_rt = replica_tracked(torch, rb, replica)
     l_ke = kitti_eval(torch, rb, kitti_run, kitti_data)
+    # the validation suite's kitti leg on the same frames (subprocesses:
+    # their launches are not counted here)
+    t_val = validation(kitti_data)
+    log(f"validation phase: {t_val:.1f} s added")
     # the headline raster benchmark at full size, and the kernels on its
     # tables
     l_bn, e_bn = bench(torch, rb)

@@ -66,6 +66,7 @@ from pings_tpu_torch.ops.scan_normals import scan_incidence_cos
 from pings_tpu_torch.slam.loop_detector import (
     ScanContextManager, detect_local_loop)
 from pings_tpu_torch.slam.pgo import PoseGraph
+from pings_tpu_torch.utils import jax_random
 from pings_tpu_torch.utils import pose as hp
 from pings_tpu_torch.vis.packet import VisPacket, downsample_points
 
@@ -97,7 +98,11 @@ class SlamSystem:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
             self.m = npm.init_map(cfg, gen, self.device)
-            self.decoders = init_decoders(gen, cfg, self.device)
+            # the JAX package's initial decoders at this seed (its key
+            # split as its SlamSystem splits it): where the tracker follows
+            # the kitti lap's start from rest hangs on them
+            kd = jax_random.split(jax_random.prng_key(cfg.seed))[1]
+            self.decoders = init_decoders(kd, cfg, self.device)
         self.pool = rp.init_pool(cfg.pool_capacity, self.device)
         self.tracker = Tracker(cfg, self.device) if cfg.track_on else None
         self.pgo = PoseGraph(cfg) if cfg.pgo_on else None

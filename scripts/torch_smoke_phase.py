@@ -5,6 +5,7 @@
     python3 scripts/torch_smoke_phase.py slam_loop [--runs 6]
     python3 scripts/torch_smoke_phase.py bench
     python3 scripts/torch_smoke_phase.py kitti_options [--runs 5]
+    python3 scripts/torch_smoke_phase.py validation
 
 ``parallel`` builds the kernels, ray-casts the kitti train cell's frames
 112-121 and runs the smoke's ``parallel`` phase (groups of 1, 2 and 4 ranks
@@ -15,8 +16,9 @@ others). ``bench`` runs ``python -m pings_tpu_torch.bench`` at full size
 and holds and times the kernels on its tables (``chip_smoke.bench``).
 ``kitti_options`` writes the 12 kitti frames of ``cli kitti`` once and
 runs the options cell (deskew, dynamic filter, semantics; every frame
-must track) ``--runs`` times, about 60 s each. Exits non-zero if a run
-failed.
+must track) ``--runs`` times, about 60 s each. ``validation`` writes the
+same 12 frames and runs the validation suite's kitti leg on them
+(``chip_smoke.validation``). Exits non-zero if a run failed.
 """
 
 import argparse
@@ -34,7 +36,7 @@ sys.path.insert(0, str(ROOT))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("parallel", "slam_loop", "bench",
-                                      "kitti_options"))
+                                      "kitti_options", "validation"))
     ap.add_argument("--runs", type=int, default=1)
     args = ap.parse_args()
 
@@ -49,7 +51,7 @@ def main():
         print("torch_smoke_phase: needs a CUDA device", file=sys.stderr)
         return 1
     _build.build_all()
-    if args.phase == "kitti_options":
+    if args.phase in ("kitti_options", "validation"):
         sys.path.insert(0, str(ROOT / "scripts"))
         from torch_make_kitti_data import make_kitti
 
@@ -69,6 +71,8 @@ def main():
                 cs.bench(torch, rb)
             elif args.phase == "kitti_options":
                 cs.kitti_options(torch, rb, os.path.join(tmp, "kitti_synth"))
+            elif args.phase == "validation":
+                cs.validation(os.path.join(tmp, "kitti_synth"))
             else:
                 cs.slam_loop(torch, rb)
             print(f"run {k}: passed in {time.perf_counter() - t0:.1f} s",
@@ -77,7 +81,7 @@ def main():
             failed += 1
             print(f"run {k}: failed in {time.perf_counter() - t0:.1f} s: {e}",
                   flush=True)
-    if args.phase == "kitti_options":
+    if args.phase in ("kitti_options", "validation"):
         shutil.rmtree(tmp, ignore_errors=True)
     return 1 if failed else 0
 

@@ -73,3 +73,51 @@ def test_missing_biases_are_none():
     assert d["m"]["b"] == [None, None]
     out = td.mlp_forward(d["m"], torch.ones(5, 3))
     assert torch.equal(out, torch.full((5, 2), 12.0))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2 ** 33 + 5])
+def test_jax_random_draws_match(seed):
+    """``utils.jax_random``: keys, splits, fold-free uniform draws equal
+    ``jax.random``'s bit for bit; normal draws within 2e-5 absolute
+    (an erfinv in float64 against XLA's float32 polynomial)."""
+    from pings_tpu_torch.utils import jax_random as jr
+
+    k = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(jr.prng_key(seed), np.asarray(k))
+    np.testing.assert_array_equal(jr.split(jr.prng_key(seed), 8),
+                                  np.asarray(jax.random.split(k, 8)))
+    sub = jr.split(jr.prng_key(seed), 3)[2]
+    for lo, hi in ((0.0, 1.0), (-0.17677669, 0.17677669)):
+        np.testing.assert_array_equal(
+            jr.uniform(sub, (33, 7), lo, hi),
+            np.asarray(jax.random.uniform(jax.random.split(k, 3)[2],
+                                          (33, 7), minval=lo, maxval=hi)))
+    n = jr.normal(sub, (65, 64))
+    np.testing.assert_allclose(
+        n, np.asarray(jax.random.normal(jax.random.split(k, 3)[2],
+                                        (65, 64))), rtol=0, atol=2e-5)
+    assert n.dtype == np.float32 and 0.9 < n.std() < 1.1
+
+
+@pytest.mark.parametrize("seed", [42, 0])
+def test_slam_system_starts_from_jax_decoders(seed):
+    """A fresh ``SlamSystem`` of the port holds the JAX package's initial
+    decoders at the same seed (the kitti configuration): biases equal,
+    weights within 2e-5 absolute."""
+    from pings_tpu.config import Config as JConfig
+    from pings_tpu.slam.pipeline import SlamSystem as JSlam
+    from pings_tpu_torch.config import Config as TConfig
+    from pings_tpu_torch.slam.pipeline import SlamSystem as TSlam
+
+    path = "configs/kitti_synth.yaml"
+    over = dict(gs_on=False, pgo_on=False, seed=seed)
+    j = JSlam(JConfig.load(path, overrides=over)).decoders
+    t = TSlam(TConfig.load(path, overrides=over), device="cpu").decoders
+    assert set(t) == set(j)
+    for name in j:
+        for a, b in zip(t[name]["b"], j[name]["b"]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        for a, b in zip(t[name]["w"], j[name]["w"]):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=2e-5)

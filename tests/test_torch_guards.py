@@ -124,6 +124,33 @@ def test_chip_smoke_imports_neither_jax_nor_pings_tpu():
         assert not bad, (path, bad)
 
 
+def test_validation_scripts_load_neither_jax_nor_matplotlib():
+    """The validation suite and the trajectory tools
+    (``scripts/torch_*``), each run with ``--help`` in one fresh process:
+    no module of jax, pings_tpu or matplotlib appears in sys.modules on
+    the way, and each prints its usage."""
+    scripts = ["torch_calibration_tool", "torch_create_trajectory_files",
+               "torch_multi_traj_comparator", "torch_make_validation_data",
+               "torch_run_validation"]
+    code = ("import runpy, sys\n"
+            "before = set(sys.modules)\n"
+            f"for s in {scripts!r}:\n"
+            "    sys.argv = [f'scripts/{s}.py', '--help']\n"
+            "    try:\n"
+            "        runpy.run_path(sys.argv[0], run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, (s, e.code)\n"
+            "    bad = sorted(m for m in set(sys.modules) - before\n"
+            "                 if m.split('.')[0] in ('jax', 'pings_tpu',\n"
+            "                                        'matplotlib'))\n"
+            "    assert not bad, (s, bad)\n")
+    env = dict(os.environ, PYTHONPATH="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.count("usage:") == len(scripts), r.stdout
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -222,6 +249,7 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     from pings_tpu_torch.odometry.tracker import Tracker
     from pings_tpu_torch.slam import pipeline
     from pings_tpu_torch.slam.pipeline import SlamSystem
+    from pings_tpu_torch.utils.jax_random import prng_key
 
     small = dict(max_points=64, buffer_size=64, pool_capacity=64)
     cfg = Config.load(overrides=dict(small, track_on=True, gs_on=True))
@@ -232,7 +260,7 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
     with pytest.raises(RuntimeError, match="cuda"):
         init_map(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
-        init_decoders(torch.Generator(), cfg)
+        init_decoders(prng_key(0), cfg)
     scan = {"points": np.ones((8, 3), np.float32)}
     with pytest.raises(RuntimeError, match="cuda"):
         fr.preprocess_frame(scan, cfg, np.eye(4), False)
@@ -276,8 +304,8 @@ def test_slam_entry_points_default_to_cuda_and_unported_options_raise():
                  {"incidence_weight_on": True, "incidence_source": "field"}):
         c = Config.load(overrides=dict(small, **over))
         params = sdf_mapper.sdf_params(init_map(c, device="cpu"),
-                                       init_decoders(torch.Generator(), c,
-                                                     "cpu"), c.semantic_on)
+                                       init_decoders(prng_key(0), c, "cpu"),
+                                       c.semantic_on)
         assert callable(sdf_mapper.make_sdf_scan_step(
             c, sdf_mapper.make_sdf_optimizer(c, params)))
 
@@ -300,11 +328,12 @@ def test_render_raises_without_a_card():
         render(local, {}, cam, 16, 16, gs_type="2d_gs")
     from pings_tpu_torch.config import Config
     from pings_tpu_torch.models.decoder import init_decoders
+    from pings_tpu_torch.utils.jax_random import prng_key
 
     cfg = Config(feature_dim=8, color_feature_dim=8)
     local = local._replace(valid=torch.zeros(4, dtype=torch.bool))
-    r = render(local, init_decoders(torch.Generator(), cfg, "cpu"), cam, 16,
-               16, gs_type="2d_gs", device="cpu")
+    r = render(local, init_decoders(prng_key(0), cfg, "cpu"), cam, 16, 16,
+               gs_type="2d_gs", device="cpu")
     assert r.distortion.shape == (16, 16) and not r.alpha.any()
     assert r.depth_median is not None
 

@@ -104,3 +104,52 @@ def test_sdf_slice_and_recon_3d_match_jax(tmp_path):
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
     assert np.isfinite(a).sum() > 100
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_eval_heldout_cam_refine_matches_jax(systems, tmp_path, monkeypatch):
+    """``--cam-refine`` on one held-out full-size frame (frame 0 of the
+    room), 3 refinement iterations in both packages: the refined pose
+    delta (theta, rho) within 1e-4 (Adam's first steps are lr = 1e-3 in
+    each component, so a step taken the other way would show as 2e-3),
+    PSNR within 1e-3 dB, depth L1 within 1e-5 m, and the refinement moved
+    the pose."""
+    import pings_tpu.eval.lpips
+    import pings_tpu_torch.eval.image
+
+    stub = lambda pred, target, **kw: (0.0, False)    # noqa: E731
+    monkeypatch.setattr(pings_tpu.eval.lpips, "lpips", stub)
+    monkeypatch.setattr(pings_tpu_torch.eval.image, "lpips", stub)
+    jcfg, jsys, tcfg, tsys = systems
+    for cfg in (jcfg, tcfg):
+        monkeypatch.setattr(cfg, "gs_eval_cam_refine_iters", 3)
+        monkeypatch.setattr(cfg, "gs_eval_cam_refine_on", False)
+        monkeypatch.setattr(cfg, "max_gs_per_tile", 32)
+    monkeypatch.setattr(jcfg, "raster_precision", "high")
+    refined = {}
+    for tag, mod in (("j", jim), ("t", tim)):
+        def wrap(*a, _f=mod.refine_view_pose, _tag=tag, **kw):
+            out = _f(*a, **kw)
+            refined[_tag] = np.concatenate([np.asarray(x).reshape(-1)
+                                            for x in out])
+            return out
+        monkeypatch.setattr(mod, "refine_view_pose", wrap)
+    make_replica(str(tmp_path), n_poses=60, n_frames=1)
+    args = argparse.Namespace(
+        loader="replica", data_path=str(tmp_path / "replica_synth"),
+        seq="room_synth", eval_every=1, cam_refine=True)
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    want = jim.eval_heldout(args, jcfg, jsys, str(tmp_path / "j"))
+    got = tim.eval_heldout(args, tcfg, tsys, str(tmp_path / "t"))
+    assert tcfg.gs_eval_cam_refine_on and jcfg.gs_eval_cam_refine_on
+    assert sorted(got) == sorted(want) and "test_psnr" in got
+    assert refined["t"].shape == refined["j"].shape == (6,)
+    np.testing.assert_allclose(refined["t"], refined["j"], rtol=0, atol=1e-4)
+    assert np.abs(refined["t"]).max() > 1e-3
+    jr = _rows(tmp_path / "j" / "gs_eval.csv")
+    tr = _rows(tmp_path / "t" / "gs_eval.csv")
+    assert len(jr) == len(tr) == 1 and tr[0]["split"] == "test"
+    for k, tol in (("psnr", 1e-3), ("depth_l1", 1e-5)):
+        assert abs(float(tr[0][k]) - float(jr[0][k])) <= tol, \
+            (k, tr[0][k], jr[0][k])
+    assert np.isfinite(float(tr[0]["psnr"]))
