@@ -328,6 +328,36 @@ def log(*a):
     print(*a, flush=True)
 
 
+def record(fn, name="smoke", wait=True):
+    """``fn()`` as one root of the port's span recorder, on for the call:
+    (its result, the root). With ``wait`` the root's device times are read
+    (waiting for the card); else ``trace.roots()`` reads them later."""
+    from pings_tpu_torch.utils import trace
+
+    trace.enable()
+    try:
+        with trace.span(name) as sp:
+            out = fn()
+    finally:
+        trace.disable()
+    root = next(r for r in reversed(trace.roots(wait=wait))
+                if r.spans[0] is sp)
+    return out, root
+
+
+def frame_reads(root):
+    """(the tracker's device-to-host reads, every call that waited for the
+    card) in a recorded root."""
+    track = sum(len(root.find(n)) for n in ("read/track_stop",
+                                            "read/track_result"))
+    return track, root.count("host_reads")
+
+
+def stage_dev_ms(root, names):
+    """The device ms of the first span of ``root`` named in ``names``."""
+    return next(s.dev_ms for s in root.spans if s.name in names)
+
+
 def close_robust(name, a, b, atol, frac=2e-3, hard_atol=5e-2):
     """Tight on >= 1-frac of the elements, a hard bound on the rest."""
     d = (a - b).abs()
@@ -707,31 +737,26 @@ def main_path(torch, rb, name, run_dir, T_c_l, K, W, H, pick,
 
 
 def stages(torch, cfg, system, view, W, H, gs_type=None, reps=5):
-    """Per-stage ms of render() on one view, from CUDA events recorded by
-    its stage hook (median of ``reps`` after a warm-up); the view's
-    attribute and tile tables as the path built them; and the host's ms
-    per stage (its clock at the same hooks). Where the two agree the card
-    waited for the host and the stage's ms is the host's.
-    Returns (stage ms, attr16, bins, ntx, nty, host ms)."""
+    """Per-stage ms of render() on one view, from the span recorder's CUDA
+    events at its stage hooks (median of ``reps`` after a warm-up); the
+    view's attribute and tile tables as the path built them; and the
+    host's ms per stage (the recorder's clock at the same hooks). Where
+    the two agree the card waited for the host and the stage's ms is the
+    host's. Returns (stage ms, attr16, bins, ntx, nty, host ms)."""
     from pings_tpu_torch.models.renderer import render
 
     local, cam = view
     kw = render_kw(cfg, gs_type)
     rows, host, seen = {}, {}, {}
     for _ in range(reps + 1):
-        marks = []
-
-        def hook(stage, **tensors):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((stage, ev, time.perf_counter()))
-            seen.update(tensors)
-
-        render(local, system.decoders, cam, W, H, stage_hook=hook, **kw)
-        torch.cuda.synchronize()
-        for (_, a, ta), (stage, b, tb) in zip(marks, marks[1:]):
-            rows.setdefault(stage, []).append(a.elapsed_time(b))
-            host.setdefault(stage, []).append((tb - ta) * 1e3)
+        _, root = record(lambda: render(
+            local, system.decoders, cam, W, H,
+            stage_hook=lambda stage, **t: seen.update(t), **kw))
+        for s in root.spans:
+            # the stages: not the reads, which may lie outside them
+            if s.parent == 0 and not s.name.startswith("read/"):
+                rows.setdefault(s.name, []).append(s.dev_ms)
+                host.setdefault(s.name, []).append(s.ns / 1e6)
     st = {k: statistics.median(v[1:]) for k, v in rows.items()}
     st_host = {k: statistics.median(v[1:]) for k, v in host.items()}
     tile = cfg.tile_size
@@ -1103,27 +1128,26 @@ def train_path(torch, rb, name, system, frames, iters):
 
 def train_times(torch, system, frames, fid, iters):
     """ms per GS iteration (host clock, a synchronize at each end; fresh
-    and cached table) and per-stage ms (CUDA events), from one more
-    _train_gs call with a stage hook."""
-    ev, host = [], []
+    and cached table) and per-stage ms (the span recorder's CUDA events),
+    from one more _train_gs call with a stage hook."""
+    from pings_tpu_torch.mapping.gs_mapper import STEP_STAGES
+
+    host = []
 
     def hook(stage):
-        e = torch.cuda.Event(enable_timing=True)
         if stage in ("begin", "optimizer"):
             torch.cuda.synchronize()
             host.append((stage, time.perf_counter()))
-        e.record()
-        ev.append((stage, e))
 
-    run_train_gs(torch, system, frames, fid, iters, hook)
-    torch.cuda.synchronize()
+    _, root = record(lambda: run_train_gs(torch, system, frames, fid,
+                                          iters, hook))
     per_iter = [(b[1] - a[1]) * 1e3 for a, b in zip(host[::2], host[1::2])]
     fresh = [t for t, e in zip(per_iter, system.gs_iter_log) if not e[2]]
     cached = [t for t, e in zip(per_iter, system.gs_iter_log) if e[2]]
     rows = {}
-    for (_, a), (stage, b) in zip(ev, ev[1:]):
-        if stage != "begin":
-            rows.setdefault(stage, []).append(a.elapsed_time(b))
+    for s in root.spans:
+        if s.name in STEP_STAGES:
+            rows.setdefault(s.name, []).append(s.dev_ms)
     st = {k: statistics.median(v[1:]) for k, v in rows.items()}
     med = lambda v: statistics.median(v) if v else float("nan")
     # the first fresh iteration of a call carries the warm-up
@@ -1165,7 +1189,7 @@ def slam_run(torch, rb, name, system, frames, verbose=True):
                   sum(rb.CONTRIB_LAUNCHES.values()))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep = system.process_frame(frame)
+        rep, root = record(lambda: system.process_frame(frame))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         reps.append(rep)
@@ -1173,6 +1197,7 @@ def slam_run(torch, rb, name, system, frames, verbose=True):
             n = [sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
                  sum(rb.CONTRIB_LAUNCHES.values())]
             mt = rep.metrics
+            track_reads, reads = frame_reads(root)
             log(f"slam {name} frame {rep.frame_id}: {ms[-1]:.1f} ms, stages "
                 + ", ".join(f"{k}={v * 1e3:.1f}"
                             for k, v in rep.timings.items())
@@ -1180,9 +1205,10 @@ def slam_run(torch, rb, name, system, frames, verbose=True):
                 f"{mt.get('track_iter', 0)}, valid ratio "
                 f"{mt.get('track_valid_ratio', float('nan')):.3f}, residual "
                 f"{mt.get('track_res_m', float('nan')):.4f} m, syncs "
-                f"{mt.get('track_syncs', 0)}; map {rep.n_points} points, "
-                f"new_obs_ratio {mt.get('new_obs_ratio', float('nan')):.3f}, "
-                f"sdf_iters {mt.get('sdf_iters', 0)}, gs_iters "
+                f"{track_reads} (of the frame {reads}); map {rep.n_points} "
+                f"points, new_obs_ratio "
+                f"{mt.get('new_obs_ratio', float('nan')):.3f}, sdf_iters "
+                f"{mt.get('sdf_iters', 0)}, gs_iters "
                 f"{mt.get('gs_iters', 0)}, gs_psnr "
                 f"{mt.get('gs_psnr', float('nan')):.3f}, sdf_bce "
                 f"{mt.get('sdf_bce', float('nan')):.5f}; launches "
@@ -1345,13 +1371,15 @@ def slam_loop(torch, rb, n=LOOP_FRAMES, verbose=False, **kw):
         gt.append(frame["gt_pose"])
         before = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
                   sum(rb.CONTRIB_LAUNCHES.values()))
-        system.loop_times.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep = system.process_frame(frame)
+        rep, root = record(lambda: system.process_frame(frame))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         reps.append(rep)
+        # the PGO solve's and the applied correction's ms (their spans)
+        loop_ms = {s.name: s.ns / 1e6 for s in root.spans
+                   if s.name in ("pgo", "correct")}
         n_ = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
               sum(rb.CONTRIB_LAUNCHES.values()))
         per_frame.append([a - b for a, b in zip(n_, before)])
@@ -1362,16 +1390,16 @@ def slam_loop(torch, rb, n=LOOP_FRAMES, verbose=False, **kw):
             log(f"slam loop frame {rep.frame_id}: {ms[-1]:.1f} ms, valid "
                 f"{rep.tracking_valid}, travel {system.travel[-1]:.2f} m, "
                 f"position error {np.round(err, 3).tolist()}")
-        if "pgo" in system.loop_times:
-            pgo_ms.append(system.loop_times["pgo"] * 1e3)
+        if "pgo" in loop_ms:
+            pgo_ms.append(loop_ms["pgo"])
         ev = system.loop_events[-1] if system.loop_events else None
         if ev is not None and ev["frame"] == rep.frame_id:
             log(f"slam loop frame {rep.frame_id}: {ms[-1]:.1f} ms, loop "
                 f"stage {rep.timings['loop'] * 1e3:.1f} ms, "
-                + (f"PGO solve {system.loop_times['pgo'] * 1e3:.1f} ms, "
-                   if "pgo" in system.loop_times else "")
-                + (f"correction {system.loop_times['correct'] * 1e3:.1f} "
-                   "ms, " if "correct" in system.loop_times else "")
+                + (f"PGO solve {loop_ms['pgo']:.1f} ms, "
+                   if "pgo" in loop_ms else "")
+                + (f"correction {loop_ms['correct']:.1f} ms, "
+                   if "correct" in loop_ms else "")
                 + f"{ev['source']} candidate {ev['cand']}: {ev['decision']}"
                 f" (correction {ev.get('corr_tr_m')} m "
                 f"{ev.get('corr_rot_deg')} deg); launches {per_frame[-1]}")
@@ -1451,7 +1479,7 @@ def recorded_system(torch, rb, base):
             super().__init__(*a, **k)
             Recorded.last = self
             self.ms, self.launch_log, self.reports = [], [], []
-            self.gs_log = []
+            self.gs_log, self.reads = [], []
 
         def process_frame(self, frame):
             before = (sum(rb.LAUNCHES.values()),
@@ -1459,9 +1487,11 @@ def recorded_system(torch, rb, base):
                       sum(rb.CONTRIB_LAUNCHES.values()))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rep = super().process_frame(frame)
+            rep, root = record(lambda: super(Recorded, self).process_frame(
+                frame))
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.reads.append(frame_reads(root))
             n_ = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
                   sum(rb.CONTRIB_LAUNCHES.values()))
             self.launch_log.append([a - b for a, b in zip(n_, before)])
@@ -1687,27 +1717,20 @@ def arbiter(torch, rb, cfg, system, view, W, H, mode):
 
 def timed_render(torch, cfg, system, view, W, H, gs_type):
     """One ``render()`` of ``view`` on the card: (result, ms on the host
-    clock with a synchronize on both sides, the blend's ms from CUDA
-    events between the "bin" stage and the next, peak device GiB)."""
+    clock with a synchronize on both sides, the blend's ms from the span
+    recorder's CUDA events between the "bin" stage and the next, peak
+    device GiB)."""
     from pings_tpu_torch.models.renderer import render
 
     local, cam = view
-    marks = []
-
-    def hook(stage, **_):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev))
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = render(local, system.decoders, cam, W, H, stage_hook=hook,
-               **render_kw(cfg, gs_type))
+    r, root = record(lambda: render(local, system.decoders, cam, W, H,
+                                    **render_kw(cfg, gs_type)))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    i = [st for st, _ in marks].index("bin")
-    return (r, ms, marks[i][1].elapsed_time(marks[i + 1][1]),
+    return (r, ms, stage_dev_ms(root, ("blend", "blend_kernel")),
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
@@ -1789,6 +1812,7 @@ def render_grad_ms(torch, cfg, system, view, W, H, reps=4):
     "blend_kernel" stage hooks), and the peak device memory: what the
     2DGS blend's torch ops cost against the kernels on the same view."""
     from pings_tpu_torch.models.renderer import render
+    from pings_tpu_torch.utils import trace
 
     local, cam = view
     out = {}
@@ -1798,26 +1822,20 @@ def render_grad_ms(torch, cfg, system, view, W, H, reps=4):
         torch.cuda.reset_peak_memory_stats()
         for _ in range(reps):
             feat = local.geo_feat.detach().clone().requires_grad_(True)
-            marks = {}
-
-            def hook(stage, **_):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks[stage] = ev
-
             a, b = event_pair(torch)
             c = torch.cuda.Event(enable_timing=True)
             a.record()
-            r = render(local._replace(geo_feat=feat), system.decoders, cam,
-                       W, H, stage_hook=hook, **kw)
+            r, root = record(lambda: render(
+                local._replace(geo_feat=feat), system.decoders, cam, W, H,
+                **kw), wait=False)
             b.record()
             (r.rgb.mean() + 1e-3 * r.depth.mean()).backward()
             c.record()
             torch.cuda.synchronize()
+            trace.roots()
             fwd.append(a.elapsed_time(b))
             bwd.append(b.elapsed_time(c))
-            blend.append(marks["bin"].elapsed_time(
-                marks["blend" if gs_type == "2d_gs" else "blend_kernel"]))
+            blend.append(stage_dev_ms(root, ("blend", "blend_kernel")))
             if not torch.isfinite(feat.grad).all():
                 raise AssertionError(f"render_grad {gs_type}: non-finite "
                                      "gradient")
@@ -2053,6 +2071,39 @@ def replica_data():
     return data
 
 
+def timed_mesher(base):
+    """A subclass of the port's ``Mesher`` (``base``) that adds up the
+    seconds of its grid queries (``query_s``, device work included) and of
+    the marching after them (``march_s``: ``recon_aabb_mesh`` without its
+    grid query and its colours)."""
+
+    class Timed(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.query_s = self.march_s = 0.0
+
+        def query_sdf_grid(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().query_sdf_grid(*a, **k)
+            self.query_s += time.perf_counter() - t0
+            return out
+
+        def query_colors(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().query_colors(*a, **k)
+            self.march_s -= time.perf_counter() - t0
+            return out
+
+        def recon_aabb_mesh(self, *a, **k):
+            q0 = self.query_s
+            t0 = time.perf_counter()
+            out = super().recon_aabb_mesh(*a, **k)
+            self.march_s += time.perf_counter() - t0 - (self.query_s - q0)
+            return out
+
+    return Timed
+
+
 def inspect_run(torch, rb, run_dir, argv):
     """``inspect_map.main(run_dir + argv)`` on cuda with the launch counts
     zeroed just before and read just after; returns (report, launches,
@@ -2065,7 +2116,7 @@ def inspect_run(torch, rb, run_dir, argv):
     meshers, evals, renders, metrics = [], [], [], []
     orig = (im.Mesher, im.eval_heldout, im.render, im.image_metrics)
 
-    class Kept(orig[0]):
+    class Kept(timed_mesher(orig[0])):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             meshers.append(self)
@@ -2138,7 +2189,7 @@ def replica_eval(torch, rb, data):
         n_views = sum(1 for _ in f) - 1
     card_v = read_ply(os.path.join(out, "mesh.ply"))["xyz"]
     cfg_c, sys_c = load_system(REPLICA, device="cpu")
-    me_c = Mesher(cfg_c, "cpu")
+    me_c = timed_mesher(Mesher)(cfg_c, "cpu")
     t0 = time.perf_counter()
     cpu_v, _, _ = me_c.recon_map_mesh(sys_c.m, sys_c.decoders, res=MESH_RES)
     t_cpu = time.perf_counter() - t0
@@ -2391,14 +2442,15 @@ def derived_config(name, tmp, **sections):
 
 
 def log_frames(name, system):
-    for r, m_, l_ in zip(system.reports, system.ms, system.launch_log):
+    for r, m_, l_, (track_reads, reads) in zip(
+            system.reports, system.ms, system.launch_log, system.reads):
         mt = r.metrics
         log(f"{name} frame {r.frame_id}: {m_:.1f} ms, stages "
             + ", ".join(f"{k}={v * 1e3:.1f}" for k, v in r.timings.items())
             + f" ms; valid {r.tracking_valid}, track iterations "
             f"{mt.get('track_iter', 0)}, residual "
             f"{mt.get('track_res_m', float('nan')):.4f} m, syncs "
-            f"{mt.get('track_syncs', 0)}; map "
+            f"{track_reads} (of the frame {reads}); map "
             f"{r.n_points} points, dynamic points dropped "
             f"{mt.get('dyn_dropped', '-')}, gs_iters {mt.get('gs_iters', 0)}, "
             f"gs_psnr {mt.get('gs_psnr', float('nan')):.3f}; launches "

@@ -26,6 +26,10 @@ loop polls) saves a ``VisPacket`` every N frames and at the last frame into
 :196-227), and bakes them into ``viewer.html`` at the end of the run.
 ``python -m pings_tpu_torch.vis.live RUN_DIR`` serves the packets and
 writes ``control.json`` while the run goes on.
+
+``--trace-out PATH`` turns the span recorder on (``utils.trace``) and
+writes its spans of the run's last ``trace.KEEP_ROOTS`` frames to PATH at
+the end as Chrome trace events, for Perfetto.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from pings_tpu_torch.eval.traj import (
 from pings_tpu_torch.slam.mesher import Mesher, write_ply
 from pings_tpu_torch.slam.pipeline import SlamSystem
 from pings_tpu_torch.slam.tsdf import fuse_run
+from pings_tpu_torch.utils import trace
 from pings_tpu_torch.vis.control import ControlLoop
 from pings_tpu_torch.vis.viewer import write_viewer
 
@@ -81,6 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "standalone WebGL viewer.html at the end")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="record spans of the frame loop and write them to "
+                        "PATH as Chrome trace events (JSON) at the end")
     return p
 
 
@@ -141,6 +149,8 @@ def run(args) -> dict:
     packets = []
     # live control: <run_dir>/control.json is polled every frame
     ctrl = ControlLoop(run_dir)
+    if args.trace_out:
+        trace.enable()
     t_start = time.time()
     for fid in range(begin, end, step):
         if not ctrl.wait_if_paused():
@@ -173,6 +183,12 @@ def run(args) -> dict:
                   "— writing results before the failure point", flush=True)
             break
     wall = time.time() - t_start
+    if args.trace_out:
+        trace.disable()
+        n = trace.write_chrome(args.trace_out)
+        if not cfg.silence:
+            print(f"{n} trace events written to {args.trace_out}",
+                  flush=True)
 
     results = write_results(run_dir, cfg, system, ds, reports, gt, wall)
     if packets:

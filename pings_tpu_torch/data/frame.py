@@ -19,6 +19,7 @@ import torch
 
 from pings_tpu_torch import resolve_device
 from pings_tpu_torch.ops import transforms as tf
+from pings_tpu_torch.utils import trace
 
 
 def pad_pow2(pts: np.ndarray, min_size: int = 4096):
@@ -70,8 +71,9 @@ def preprocess_frame(frame: dict, cfg, T_rel_last: np.ndarray,
 
     pts_p, mask = pad_pow2(pts)
     colors_p, _ = pad_pow2(colors)
-    tp = torch.as_tensor(pts_p, device=device)
-    tm = torch.as_tensor(mask, device=device)
+    with trace.read("scan_upload", n=2):
+        tp = torch.as_tensor(pts_p, device=device)
+        tm = torch.as_tensor(mask, device=device)
     tm = tm & tf.crop_range_mask(tp, cfg.min_range, cfg.max_range,
                                  cfg.min_z, cfg.max_z)
     if deskew_on and ts is not None and len(ts):
@@ -88,29 +90,35 @@ def preprocess_frame(frame: dict, cfg, T_rel_last: np.ndarray,
                 if t1 > t0:
                     ts_np[sel] = (ts_np[sel] - t0) / (t1 - t0)
         ts_p, _ = pad_pow2(ts_np)
-        tp = tf.deskew(tp, torch.as_tensor(ts_p, device=device),
-                       torch.as_tensor(np.asarray(T_rel_last, np.float32),
-                                       device=device))
+        with trace.read("deskew_upload", n=2):
+            ts_t = torch.as_tensor(ts_p, device=device)
+            T_t = torch.as_tensor(np.asarray(T_rel_last, np.float32),
+                                  device=device)
+        tp = tf.deskew(tp, ts_t, T_t)
     if cfg.rand_downsample:
         # keep each point with probability rand_down_r (a host generator,
         # seeded as in the JAX package)
         rng_ds = np.random.default_rng(cfg.seed + pts.shape[0])
-        keep_map = tm & torch.as_tensor(
-            rng_ds.random(tp.shape[0]) < cfg.rand_down_r, device=device)
+        with trace.read("rand_down_upload"):
+            keep_rand = torch.as_tensor(
+                rng_ds.random(tp.shape[0]) < cfg.rand_down_r, device=device)
+        keep_map = tm & keep_rand
     else:
         keep_map = tf.voxel_down_sample_mask(tp, tm, cfg.vox_down_m)
     keep_src = tf.voxel_down_sample_mask(tp, tm, cfg.source_vox_down_m)
 
-    out.points_l = tp.cpu().numpy()
+    with trace.read("scan_download", n=3):
+        out.points_l = tp.cpu().numpy()
+        out.mask = keep_map.cpu().numpy()
+        keep_src = keep_src.cpu().numpy()
     out.colors = colors_p
-    out.mask = keep_map.cpu().numpy()
     out.point_ts = ts
     sem = frame.get("sem")
     if sem is not None and len(sem):
         sem_p, _ = pad_pow2(np.asarray(sem, np.int32).reshape(-1))
         out.sem = sem_p.astype(np.int32)
 
-    src_idx = np.nonzero(keep_src.cpu().numpy())[0]
+    src_idx = np.nonzero(keep_src)[0]
     if len(src_idx) > cfg.source_max_count:
         src_idx = src_idx[:: len(src_idx) // cfg.source_max_count + 1]
     src = out.points_l[src_idx]
@@ -139,8 +147,17 @@ def preprocess_frame(frame: dict, cfg, T_rel_last: np.ndarray,
     return out
 
 
+def _on(a, device) -> torch.Tensor:
+    """``a`` (an array or a tensor) on ``device``; a copy from another
+    device waits for the card."""
+    if isinstance(a, torch.Tensor) and a.device.type == device.type:
+        return a.to(device)
+    with trace.read("camera_upload"):
+        return torch.as_tensor(a, device=device)
+
+
 def _f32(a, device) -> torch.Tensor:
-    return torch.as_tensor(a, device=device).to(torch.float32)
+    return _on(a, device).to(torch.float32)
 
 
 def project_scan_to_cam(points_w, mask, T_c_w: np.ndarray, K: np.ndarray,
@@ -150,7 +167,7 @@ def project_scan_to_cam(points_w, mask, T_c_w: np.ndarray, K: np.ndarray,
     ``device``; the points and the mask may be arrays or tensors."""
     dev = resolve_device(device)
     uv, z, valid = tf.project_points_to_cam(
-        _f32(points_w, dev), torch.as_tensor(mask, device=dev).bool(),
+        _f32(points_w, dev), _on(mask, dev).bool(),
         _f32(T_c_w, dev), _f32(K, dev), width, height)
     return tf.splat_depth_map(uv, z, valid, width, height)
 
@@ -164,6 +181,6 @@ def colorize_scan(points_w, mask, T_c_w: np.ndarray, K: np.ndarray, image,
     dev = resolve_device(device)
     h, w = image.shape[:2]
     uv, _, valid = tf.project_points_to_cam(
-        _f32(points_w, dev), torch.as_tensor(mask, device=dev).bool(),
+        _f32(points_w, dev), _on(mask, dev).bool(),
         _f32(T_c_w, dev), _f32(K, dev), w, h)
     return tf.colorize_points(uv, valid, _f32(image, dev) / 255.0)

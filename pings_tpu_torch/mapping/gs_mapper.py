@@ -37,6 +37,7 @@ from pings_tpu_torch.models.spawn import (
     LocalPointData, spawn_kwargs_from_cfg)
 from pings_tpu_torch.ops.ssim import dssim_loss
 from pings_tpu_torch.ops.transforms import quat_to_rotmat
+from pings_tpu_torch.utils import trace
 
 DECODER_KEYS = ("sdf", "color", "gauss_xyz", "gauss_rot", "gauss_scale",
                 "gauss_alpha", "gauss_color")
@@ -138,6 +139,15 @@ def rebind_gs_params(opt: AdamW, old: Dict, new: Dict) -> None:
     rebind_leaves(opt, param_leaves(old), param_leaves(new))
 
 
+def _zero_row(t: torch.Tensor, slot: int) -> None:
+    if t.dim() > 1:
+        t[slot] = 0.0
+        return
+    # a Python scalar written into a 0-d view is copied from the host
+    with trace.read("zero_slot"):
+        t[slot] = 0.0
+
+
 def reset_keyframe_slot(params: Dict, opt: Optional[AdamW], slot: int):
     """Reset a recycled keyframe slot's per-camera trainables, in place:
     when the camera pool wraps, the slot handed out may have been trained
@@ -148,15 +158,15 @@ def reset_keyframe_slot(params: Dict, opt: Optional[AdamW], slot: int):
     with torch.no_grad():
         e.mat[slot] = torch.eye(3, device=e.mat.device)
         e.off[slot] = 0.0
-        e.a[slot] = 0.0
-        e.b[slot] = 0.0
+        _zero_row(e.a, slot)
+        _zero_row(e.b, slot)
         params["cam_delta"][slot] = 0.0
         if opt is not None:
             for t in (*e, params["cam_delta"]):
                 st = opt.state.get(t)
                 if st:
-                    st["exp_avg"][slot] = 0.0
-                    st["exp_avg_sq"][slot] = 0.0
+                    _zero_row(st["exp_avg"], slot)
+                    _zero_row(st["exp_avg_sq"], slot)
     return params, opt
 
 
@@ -232,6 +242,8 @@ def make_cam_loss(cfg, width: int, height: int):
             delta = delta.detach()
         theta, rho = delta[:3], delta[3:]
 
+        with trace.read("render_bg"):
+            bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev)
         # contributions are refreshed on the rebin iterations and reused
         # in between (they drive a sample-selection gate, so a bounded
         # staleness is harmless)
@@ -240,8 +252,7 @@ def make_cam_loss(cfg, width: int, height: int):
             exposure=exposure,
             affine_exposure=cfg.affine_exposure_correction,
             theta=theta, rho=rho,
-            bg=torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev),
-            surrounding=surrounding,
+            bg=bg, surrounding=surrounding,
             spawn_kwargs=spawn_kwargs,
             tile=cfg.tile_size, max_per_tile=cfg.max_gs_per_tile,
             chunk=32, gs_type=cfg.gs_type, precision=cfg.raster_precision,
@@ -412,6 +423,9 @@ def metrics_from_terms(total, aux, bce) -> GsStepMetrics:
         distortion=d(aux["distort"]))
 
 
+STEP_STAGES = ("batch", "forward", "loss", "backward", "optimizer")
+
+
 def make_gsdf_step(cfg, optimizer: AdamW, width: int, height: int,
                    local_size: int):
     """Build the GS+SDF training step.
@@ -423,9 +437,11 @@ def make_gsdf_step(cfg, optimizer: AdamW, width: int, height: int,
     ``sdf_batch`` is the tuple of ``pool.pool_batch`` or, with
     ``draw_batch=True``, (pool, generator) to draw it here. ``freeze_geo``
     zeroes the gradients of the sdf and color decoders. ``stage_hook`` is
-    called as hook(stage) after "forward", "loss", "backward" and
+    called as hook(stage) after "batch", "forward", "loss", "backward" and
     "optimizer", and as hook("begin") before anything is launched;
-    ``render()``'s own stages are not forwarded."""
+    ``render()``'s own stages are not forwarded (the span recorder records
+    them under "forward", and these stages with CUDA-event device
+    times)."""
     del local_size   # shapes are not compiled in; kept for the signature
     cam_loss = make_cam_loss(cfg, width, height)
     batch_terms = make_sdf_batch_terms(cfg)
@@ -439,7 +455,8 @@ def make_gsdf_step(cfg, optimizer: AdamW, width: int, height: int,
              train_pose=False, bins=None, bin_means=None,
              cached_contrib=None, use_bins=False, draw_batch=False,
              stage_hook=None):
-        hook = stage_hook or (lambda stage: None)
+        hook = trace.stages(stage_hook, STEP_STAGES,
+                            device=static_map.positions.device)
         hook("begin")
         if draw_batch:
             pool, gen = sdf_batch
@@ -448,6 +465,7 @@ def make_gsdf_step(cfg, optimizer: AdamW, width: int, height: int,
         # map state: once, outside the tape
         kidx_b = npm.query_neighbor_idx(static_map, sdf_batch[0], k,
                                         stencil_r, alpha_s)
+        hook("batch")
         leaves = list(param_leaves(params))
         for t in leaves:
             t.grad = None

@@ -21,6 +21,7 @@ import torch
 
 from pings_tpu_torch import resolve_device
 from pings_tpu_torch.mapping.sampler import SdfSamples
+from pings_tpu_torch.utils import trace
 
 _FIELDS = ("points", "sdf_label", "color_label", "sem_label", "weight",
            "ray", "is_free", "ts", "count", "new_begin", "new_count")
@@ -102,17 +103,19 @@ def pool_insert(pool: ReplayPool, s: SdfSamples, cur_ts: int,
     # label)
     order = torch.arange(n, device=dest.device)
     last = torch.full((P,), -1, dtype=torch.int64, device=dest.device)
-    last.scatter_reduce_(0, dest[keep], order[keep], reduce="amax")
+    with trace.read("pool_last", n=2):
+        last.scatter_reduce_(0, dest[keep], order[keep], reduce="amax")
     keep = keep & (last[dest.clamp(0, P - 1)] == order)
-    d = dest[keep]
-    pool.points[d] = s.points[keep]
-    pool.sdf_label[d] = s.sdf_label[keep]
-    pool.color_label[d] = s.color_label[keep]
-    pool.sem_label[d] = s.sem_label[keep]
-    pool.weight[d] = s.weight[keep]
-    pool.ray[d] = s.normal_label[keep]
-    pool.is_free[d] = s.is_free[keep]
-    pool.ts[d] = cur_ts
+    with trace.read("pool_rows", n=9):
+        d = dest[keep]
+        pool.points[d] = s.points[keep]
+        pool.sdf_label[d] = s.sdf_label[keep]
+        pool.color_label[d] = s.color_label[keep]
+        pool.sem_label[d] = s.sem_label[keep]
+        pool.weight[d] = s.weight[keep]
+        pool.ray[d] = s.normal_label[keep]
+        pool.is_free[d] = s.is_free[keep]
+        pool.ts[d] = cur_ts
     pool.new_begin = count.clone()
     pool.new_count = torch.clamp_min(torch.minimum(n_valid, tail_room),
                                      0).to(torch.int32)

@@ -18,6 +18,7 @@ import torch
 
 from pings_tpu_torch.models import decoder as dec
 from pings_tpu_torch.models import neural_points as npm
+from pings_tpu_torch.utils import trace
 
 
 def sdf_from_query(decoders, q: npm.QueryResult, sigma_scale: float):
@@ -119,7 +120,8 @@ def check_invalid_gs(m: npm.NeuralPointMap, decoders,
     upd = torch.where(stable, new_valid, m.valid_gs_mask[local_idx])
     mask = m.valid_gs_mask.clone()
     mask[local_idx] = upd          # padding rows all write the dump row
-    mask[-1] = False
+    with trace.read("invalid_dump_row"):
+        mask[-1] = False
     return dataclasses.replace(m, valid_gs_mask=mask)
 
 

@@ -30,6 +30,7 @@ from pings_tpu_torch import resolve_device
 from pings_tpu_torch.ops.transforms import (
     inv_cell, quat_multiply, quat_normalize, rotmat_to_quat, sum_sq_fused,
     voxel_hash)
+from pings_tpu_torch.utils import trace
 
 _FIELDS = ("positions", "quats", "geo_feat", "color_feat", "rgb",
            "ts_create", "ts_update", "certainty", "valid_mask",
@@ -158,29 +159,33 @@ def insert_points(m: NeuralPointMap, pts: torch.Tensor, rgb: torch.Tensor,
     count = m.count.long()
     slot = count + torch.cumsum(is_winner.long(), 0) - 1
     placed = is_winner & (slot < cap)
-    dest = slot[placed]
+    with trace.read("insert_slots"):
+        dest = slot[placed]
     # the square root in float64, rounded once: torch's vectorized float32
     # square root on the CPU is not always correctly rounded
     q = quats / torch.sqrt((sum_sq_fused(quats) + 1e-12).double()).float()[
         :, None]
-    m.positions[dest] = pts[placed]
-    m.quats[dest] = q[placed]
-    m.rgb[dest] = rgb[placed]
-    m.ts_create[dest] = cur_ts
-    m.ts_update[dest] = cur_ts
-    m.certainty[dest] = 0.0
-    m.valid_mask[dest] = True
-    m.valid_gs_mask[dest] = True
-    m.geo_feat[dest] = 0.0
-    m.color_feat[dest] = 0.0
+    with trace.read("insert_rows", n=10):
+        m.positions[dest] = pts[placed]
+        m.quats[dest] = q[placed]
+        m.rgb[dest] = rgb[placed]
+        m.ts_create[dest] = cur_ts
+        m.ts_update[dest] = cur_ts
+        m.certainty[dest] = 0.0
+        m.valid_mask[dest] = True
+        m.valid_gs_mask[dest] = True
+        m.geo_feat[dest] = 0.0
+        m.color_feat[dest] = 0.0
     # the JAX scatter sends every other candidate to the dump row, where
     # the last of them stays
     last = torch.max(torch.where(placed, torch.full_like(arange, -1),
                                  arange))
     some = last >= 0
     j = torch.clamp_min(last, 0)
-    for arr, val in ((m.positions, pts[j]), (m.quats, q[j]),
-                     (m.rgb, rgb[j])):
+    # a 0-d index tensor is read to the host
+    with trace.read("insert_dump_row", n=3):
+        dump = ((m.positions, pts[j]), (m.quats, q[j]), (m.rgb, rgb[j]))
+    for arr, val in dump:
         arr[cap] = torch.where(some, val, arr[cap])
     for arr, val in ((m.ts_create, cur_ts), (m.ts_update, cur_ts),
                      (m.certainty, 0.0), (m.valid_mask, True),
@@ -190,11 +195,13 @@ def insert_points(m: NeuralPointMap, pts: torch.Tensor, rgb: torch.Tensor,
                                arr[cap])
 
     # claim the hash slots (one winner per slot: no write races)
-    m.hash_table[bucket[placed]] = dest.to(torch.int32)
+    with trace.read("insert_hash"):
+        m.hash_table[bucket[placed]] = dest.to(torch.int32)
 
     # refresh the matched existing points
     ref = torch.where(refresh, existing, torch.full_like(existing, cap))
-    m.ts_update[ref] = cur_ts
+    with trace.read("insert_refresh"):
+        m.ts_update[ref] = cur_ts
     m.count.add_(torch.sum(placed).to(torch.int32))
     return m
 
@@ -205,7 +212,8 @@ def accumulate_certainty(m: NeuralPointMap, q: QueryResult) -> NeuralPointMap:
     with torch.no_grad():
         m.certainty.index_add_(0, q.nn_idx.reshape(-1),
                                q.weights.reshape(-1).detach())
-        m.certainty[-1] = 0.0
+        with trace.read("certainty_dump_row"):
+            m.certainty[-1] = 0.0
     return m
 
 
@@ -213,12 +221,17 @@ def _nearest_first(mask: torch.Tensor, bins: torch.Tensor, cap: int,
                    nb: int) -> torch.Tensor:
     """Keep whole distance bins, nearest first, while they fit in ``cap``
     (always at least one bin)."""
-    hist = torch.bincount(torch.where(mask, bins, nb), minlength=nb + 1)
+    # bincount reads the largest bin before it counts
+    with trace.read("local_bins", n=2):
+        hist = torch.bincount(torch.where(mask, bins, nb),
+                              minlength=nb + 1)
     cum = torch.cumsum(hist[:nb], 0)
-    b_keep = max(int(torch.sum(cum <= cap)), 1)
+    with trace.read("local_keep"):
+        b_keep = max(int(torch.sum(cum <= cap)), 1)
     return mask & (bins < b_keep)
 
 
+@trace.traced("local_mask")
 def compute_local_mask(
     m: NeuralPointMap,
     cur_pos: torch.Tensor,        # (3,)
@@ -238,7 +251,10 @@ def compute_local_mask(
     128-bin distance histogram, as the JAX version does, so the result
     matches it exactly."""
     dev = m.positions.device
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    def f32(x):
+        with trace.read("local_scalar"):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
     ts = (torch.div(m.ts_create + m.ts_update, 2, rounding_mode="floor")
           if use_mid_ts else m.ts_update)
     gap = torch.abs(travel_dist[cur_ts] - travel_dist[ts.long()])
@@ -261,8 +277,9 @@ def compute_local_mask(
         local = kept
     if max_surround is not None:
         surrounding = _nearest_first(surrounding, bins, max_surround, nb)
-    local[-1] = False
-    surrounding[-1] = False
+    with trace.read("local_dump_row", n=2):
+        local[-1] = False
+        surrounding[-1] = False
     return local, surrounding
 
 
@@ -299,8 +316,9 @@ def query_neighbor_idx(m: NeuralPointMap, qpts: torch.Tensor, k: int = 6,
     distance go to the lower stencil index (a stable sort), as
     ``jax.lax.top_k`` breaks them."""
     dev = qpts.device
-    stencil = torch.as_tensor(make_stencil(stencil_r, search_alpha),
-                              device=dev)
+    with trace.read("stencil"):
+        stencil = torch.as_tensor(make_stencil(stencil_r, search_alpha),
+                                  device=dev)
     res = m.resolution
     cap = m.capacity
     coords = torch.floor(qpts * inv_cell(res)).to(torch.int32)

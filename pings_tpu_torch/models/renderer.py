@@ -29,6 +29,7 @@ from pings_tpu_torch.models.spawn import (
     LocalPointData, SpawnedGaussians, spawn_gaussians)
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops import rasterize as rz
+from pings_tpu_torch.utils import trace
 
 
 class CamView(NamedTuple):
@@ -128,10 +129,20 @@ def depth_to_normal(depth: torch.Tensor,
 
 
 _MODES = {"3d_gs": "3dgs", "gaussian_surfel": "surfel", "2d_gs": "2dgs"}
+# render()'s stages in the order its stage hook sees them
+_FUSED_STAGES = ("mark_visible", "spawn", "project", "bin", "blend_kernel",
+                 "assemble")
+_STAGES = {"3dgs": _FUSED_STAGES, "surfel": _FUSED_STAGES,
+           "2dgs": ("mark_visible", "spawn", "project", "bin", "blend")}
 
 
 def _on(x, dev):
-    return None if x is None else x.to(dev)
+    """``x`` on ``dev``; a copy from another device waits for the
+    card."""
+    if x is None or x.device.type == dev.type:
+        return None if x is None else x.to(dev)
+    with trace.read("render_input"):
+        return x.to(dev)
 
 
 def render(
@@ -175,22 +186,26 @@ def render(
     have drifted past the threshold; ``return_bins=True`` also returns
     (bins, the centres they were built from), both None in 2DGS mode, which
     bins afresh on every call and reuses nothing. ``stage_hook`` is called
-    after each stage of the path (``raster_blend.StageHook``)."""
+    after each stage of the path (``raster_blend.StageHook``); while the
+    span recorder records a root, each stage is a span of it too
+    (``utils.trace``)."""
     del precision
     mode = _MODES.get(gs_type)
     if mode is None:
         raise ValueError(f"unknown gs_type {gs_type!r}")
     dev = resolve_device(device)
-    local = LocalPointData(*(x.to(dev) for x in local))
+    local = LocalPointData(*(_on(x, dev) for x in local))
     decoders = decoders_to(decoders, dev)
-    K = cam.K.to(dev)
-    T_c_w = cam.T_c_w.to(dev)
+    K = _on(cam.K, dev)
+    T_c_w = _on(cam.T_c_w, dev)
     theta, rho, bg = _on(theta, dev), _on(rho, dev), _on(bg, dev)
     spawn_kwargs = spawn_kwargs or {}
     if theta is not None:
         T_c_w = rz.apply_pose_delta(T_c_w, theta, rho)
     cam_origin = -T_c_w[:3, :3].T @ T_c_w[:3, 3]
-    hook = stage_hook or rb._no_hook
+    order = _STAGES[mode] + (("contrib",) if with_contrib
+                             and mode != "2dgs" else ())
+    hook = trace.stages(stage_hook, order, device=dev)
     hook("begin")
 
     visible = rz.mark_visible(local.positions, T_c_w, K, width, height)
@@ -198,7 +213,7 @@ def render(
     g = spawn_gaussians(local, decoders, cam_origin, visible, **spawn_kwargs)
     hook("spawn")
     if surrounding is not None:
-        s = SpawnedGaussians(*(x.to(dev) for x in surrounding))
+        s = SpawnedGaussians(*(_on(x, dev) for x in surrounding))
         cat = lambda a, b: torch.cat([a, b])
         means, quats, scales = (cat(g.means, s.means), cat(g.quats, s.quats),
                                 cat(g.scales, s.scales))
@@ -214,7 +229,7 @@ def render(
             means, quats, scales, alphas, colors, valid, T_c_w, K, width,
             height, bg=bg, tile=tile, max_per_tile=max_per_tile,
             chunk=chunk, normalize_depth=normalize_depth, mode=mode,
-            stage_hook=stage_hook)
+            stage_hook=hook)
         bins_out = means2d = None
     else:
         r = rb.rasterize_fused(
@@ -223,7 +238,7 @@ def render(
             normalize_depth=normalize_depth, mode=mode,
             with_contrib=with_contrib, bins=raster_bins,
             return_bins=return_bins, bin_means=bin_means,
-            rebin_drift_px=rebin_drift_px, stage_hook=stage_hook)
+            rebin_drift_px=rebin_drift_px, stage_hook=hook)
         out, bins_out, means2d = r if return_bins else (r, None, None)
     rgb = out.rgb
     if exposure is not None:

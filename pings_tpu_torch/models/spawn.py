@@ -27,6 +27,7 @@ from pings_tpu_torch import resolve_device
 from pings_tpu_torch.models import decoder as dec
 from pings_tpu_torch.ops.transforms import (
     quat_multiply, quat_normalize, quat_rotate)
+from pings_tpu_torch.utils import trace
 
 
 class SpawnedGaussians(NamedTuple):
@@ -52,7 +53,8 @@ class LocalPointData(NamedTuple):
 def local_indices(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """The first ``size`` true indices of ``mask`` in buffer order, padded
     with ``fill`` (``jnp.nonzero(mask, size=, fill_value=)``)."""
-    idx = torch.nonzero(mask).flatten()[:size]
+    with trace.read("local_indices"):
+        idx = torch.nonzero(mask).flatten()[:size]
     pad = torch.full((size - idx.shape[0],), fill, dtype=idx.dtype,
                      device=idx.device)
     return torch.cat([idx, pad])
@@ -131,8 +133,9 @@ def spawn_gaussians(
     view_dist = torch.sqrt(torch.sum(view * view, dim=-1, keepdim=True)
                            + 1e-12)
     view_dir = view / view_dist
-    inv_q = quat_normalize(pts.quats) * torch.tensor(
-        [1.0, -1, -1, -1], device=dev)
+    with trace.read("spawn_conjugate"):
+        conj = torch.tensor([1.0, -1, -1, -1], device=dev)
+    inv_q = quat_normalize(pts.quats) * conj
     view_dir_local = quat_rotate(inv_q, view_dir)
 
     disp_range = displacement_range_ratio * voxel_size
@@ -142,7 +145,9 @@ def spawn_gaussians(
     means = pts.positions[:, None, :] + off_world                    # (L,K,3)
 
     rot_raw = dec.gaussian_head(decoders["gauss_rot"], feat, K)      # (L,K,4)
-    rot_raw = rot_raw + torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    with trace.read("spawn_identity"):
+        ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    rot_raw = rot_raw + ident
     quats = quat_multiply(quat_normalize(rot_raw), pts.quats[:, None, :])
 
     scale_raw = dec.gaussian_head(decoders["gauss_scale"], feat, K)  # (L,K,3)

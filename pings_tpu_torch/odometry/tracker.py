@@ -14,7 +14,8 @@ by the SE(3) exponential. The health checks run on the host in float64.
 The JAX version runs the iterations in one ``lax.while_loop``. Here the
 loop runs on the host and reads its stop flag once per iteration: up to
 ``reg_iter_n`` device-to-host reads per frame, and one more for the
-result: ``TrackResult.iterations`` + 1.
+result: ``TrackResult.iterations`` + 1 (the spans ``read/track_stop`` and
+``read/track_result`` of ``utils.trace``).
 
 Twist convention: xi = [rho(3), phi(3)], perturbation T <- exp(xi) T, so
 J_row = [grad^T, (x ^ grad)^T] with x the transformed point.
@@ -30,6 +31,7 @@ import torch
 from pings_tpu_torch import resolve_device
 from pings_tpu_torch.models import field
 from pings_tpu_torch.ops import transforms as tf
+from pings_tpu_torch.utils import trace
 
 
 class RegStats(NamedTuple):
@@ -141,7 +143,8 @@ def make_track_loop(cfg):
                    max_iter: int) -> LoopOut:
         eye6 = torch.eye(6, device=src.device)
         T = T0.to(torch.float32)
-        last_res = torch.tensor(float("inf"), device=src.device)
+        with trace.read("registration_start"):
+            last_res = torch.tensor(float("inf"), device=src.device)
         stats = None
         it = 0
         while it < max_iter:
@@ -166,7 +169,9 @@ def make_track_loop(cfg):
             T = torch.where(few | bad, T, T_new)
             last_res = torch.minimum(last_res, stats.mean_res)
             it += 1
-            if bool(stop):
+            with trace.read("track_stop"):
+                stop = bool(stop)
+            if stop:
                 break
         if stats is None:
             z = torch.zeros((), device=src.device)
@@ -203,23 +208,28 @@ class Tracker:
               source_intensity: Optional[np.ndarray] = None) -> TrackResult:
         cfg = self.cfg
         dev = self.device
-        src = torch.as_tensor(np.asarray(source, np.float32), device=dev)
-        msk = torch.as_tensor(np.asarray(source_mask, bool), device=dev)
-        if source_intensity is None:      # no colour measurement
-            inten = torch.full((src.shape[0],), -1.0, device=dev)
-        else:
-            inten = torch.as_tensor(np.asarray(source_intensity, np.float32),
-                                    device=dev)
+        with trace.read("registration_inputs",
+                        n=3 + (source_intensity is not None)):
+            src = torch.as_tensor(np.asarray(source, np.float32),
+                                  device=dev)
+            msk = torch.as_tensor(np.asarray(source_mask, bool), device=dev)
+            if source_intensity is None:      # no colour measurement
+                inten = torch.full((src.shape[0],), -1.0, device=dev)
+            else:
+                inten = torch.as_tensor(
+                    np.asarray(source_intensity, np.float32), device=dev)
+            T0 = torch.as_tensor(np.asarray(init_T_w_l, np.float32),
+                                 device=dev)
         max_iter = max_iter or cfg.reg_iter_n
-        out = self._track_loop(
-            m, decoders, src, msk, inten,
-            torch.as_tensor(np.asarray(init_T_w_l, np.float32), device=dev),
-            int(max_iter))
+        out = self._track_loop(m, decoders, src, msk, inten, T0,
+                               int(max_iter))
         # one read for the loop's results
         res = torch.cat([out.T.reshape(-1), out.H.reshape(-1),
                          out.mean_res.reshape(1).float(),
                          out.valid_count.reshape(1).float(),
-                         out.total_count.reshape(1).float()]).cpu()
+                         out.total_count.reshape(1).float()])
+        with trace.read("track_result"):
+            res = res.cpu()
         T = res[:16].double().numpy().reshape(4, 4)
         H_np = res[16:52].double().numpy().reshape(6, 6)
         # the loop composes up to reg_iter_n float32 retractions:

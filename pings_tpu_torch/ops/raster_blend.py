@@ -53,6 +53,7 @@ from pings_tpu_torch.ops.rasterize import (
     ProjectedGaussians, ProjectedSurfels, RenderOutput, TileBins,
     apply_pose_delta, bin_gaussians, project_gaussians, project_surfels,
     tile_pixels)
+from pings_tpu_torch.utils import trace
 
 SUPER = 256        # default superblock: the early-stop check interval
 NCH = 16
@@ -78,13 +79,10 @@ _ND_COLS = (12, 13, 14)
 # "blend_kernel", "assemble" and, when contributions are asked for,
 # "contrib"; the 2DGS path's "project", "bin" and "blend" come from
 # ``rasterize.rasterize``), with the tensors a profiler may want (attr16
-# after the fused path's "project", bins after "bin"). Used to time the
-# stages with CUDA events; it does nothing unless a caller passes one.
+# after the fused path's "project", bins after "bin"). The span recorder
+# (``utils.trace.stages``) is one: each stage is a span from one call to
+# the next.
 StageHook = Callable[..., None]
-
-
-def _no_hook(stage: str, **tensors) -> None:
-    pass
 
 
 def reset_launches() -> None:
@@ -665,7 +663,7 @@ def rasterize_fused(
     fill ``contrib`` with each Gaussian's summed blend weight.
     ``return_bins``: also return (bins, the centres they were built from).
     ``stage_hook``: called after each stage (see ``StageHook``)."""
-    hook = stage_hook or _no_hook
+    hook = stage_hook or trace.no_hook
     superblock(max_per_tile, sup)   # validates divisibility
     if theta is not None:
         T_c_w = apply_pose_delta(T_c_w, theta, rho)
@@ -693,7 +691,9 @@ def rasterize_fused(
         bins, bin_means_out = fresh(), base.means2d
     elif bin_means is not None and rebin_drift_px > 0:
         drift = torch.max(torch.abs(base.means2d - bin_means))
-        if bool(drift > rebin_drift_px):
+        with trace.read("rebin_drift"):
+            moved = bool(drift > rebin_drift_px)
+        if moved:
             bins, bin_means_out = fresh(), base.means2d
     hook("bin", bins=bins)
     ntx = (width + tile - 1) // tile

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from pings_tpu_torch.ops.transforms import se3_exp
+from pings_tpu_torch.utils import trace
 
 LOWPASS = 0.3
 # the blend's gates, as the CUDA kernels (ops/csrc/blend_common.cuh) fix
@@ -308,7 +309,8 @@ def bin_gaussians(
         lcap = large_cap if large_cap is not None else min(
             n, max(512, n // 32))
         is_large = p.valid & (r_raw > r_cap_s)
-        nz = torch.nonzero(is_large).flatten()[:lcap].to(torch.int32)
+        with trace.read("bin_large"):
+            nz = torch.nonzero(is_large).flatten()[:lcap].to(torch.int32)
         idx_l = torch.cat([nz, torch.full((lcap - nz.shape[0],), n,
                                           dtype=torch.int32, device=dev)])
         sel = idx_l < n

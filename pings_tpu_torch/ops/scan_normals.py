@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from pings_tpu_torch.ops.transforms import inv_cell
+from pings_tpu_torch.utils import trace
 
 _P1, _P2, _P3 = 73856093, 19349669, 83492791      # neural_points primes
 _Q1, _Q2, _Q3 = 2654435761, 805459861, 3266489917  # independent verify hash
@@ -69,7 +70,9 @@ def _smallest_eigvec(C: torch.Tensor):
     n = torch.gather(cands, 1, best[:, None, None].expand(-1, 1, 3))[:, 0]
     nn = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
     ok = nn[:, 0] > 1e-12
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=C.dtype, device=C.device)
+    with trace.read("normal_fallback"):
+        fallback = torch.tensor([0.0, 0.0, 1.0], dtype=C.dtype,
+                                device=C.device)
     return torch.where(ok[:, None], n / torch.clamp_min(nn, 1e-12),
                        fallback.expand_as(n)), ok
 

@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from pings_tpu_torch.utils import trace
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,7 +29,8 @@ def _gauss_kernel(window: int = 11, sigma: float = 1.5) -> np.ndarray:
 def _blur(x: torch.Tensor, window: int = 11) -> torch.Tensor:
     """Separable Gaussian blur, no padding. x: (H, W, C) ->
     (H - window + 1, W - window + 1, C)."""
-    k = torch.as_tensor(_gauss_kernel(window), device=x.device)
+    with trace.read("ssim_window"):
+        k = torch.as_tensor(_gauss_kernel(window), device=x.device)
     h = F.conv2d(x.permute(2, 0, 1)[:, None], k[None, None, :, None])
     hw = F.conv2d(h, k[None, None, None, :])
     return hw[:, 0].permute(1, 2, 0)

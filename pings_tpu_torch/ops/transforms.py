@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from pings_tpu_torch.utils import trace
 
 HASH_PRIMES = (73856093, 19349669, 83492791)
 
@@ -174,7 +175,8 @@ def se3_exp(xi: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    with trace.read("se3_corner"):
+        T[..., 3, 3] = 1.0
     return T
 
 
@@ -246,7 +248,8 @@ def voxel_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:
     with a non-negative result; |INT32_MIN| stays negative in both
     packages and the floor modulus maps it into range all the same."""
     c = coords.to(torch.int32)
-    p = torch.tensor(HASH_PRIMES, dtype=torch.int32, device=c.device)
+    with trace.read("hash_primes"):
+        p = torch.tensor(HASH_PRIMES, dtype=torch.int32, device=c.device)
     h = (c[..., 0] * p[0]) ^ (c[..., 1] * p[1]) ^ (c[..., 2] * p[2])
     return torch.remainder(torch.abs(h), table_size).to(torch.int64)
 

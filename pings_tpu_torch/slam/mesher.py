@@ -9,13 +9,10 @@ grid is queried in batches of 65,536 points on the mesher's device, one
 read back per batch; ``nn_count`` and the trust mask (``nn_count >=
 min(mesh_min_nn, k)``) equal the JAX package's. Marching tetrahedra is the
 port's copy of the host C++ library (``pings_tpu_torch.native``).
-``query_s`` and ``march_s`` accumulate the seconds of the grid queries
-(device work included) and of the marching.
 """
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -35,8 +32,6 @@ class Mesher:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.sigma_scale = cfg.logistic_gaussian_ratio * cfg.sigma_sigmoid_m
-        self.query_s = 0.0
-        self.march_s = 0.0
 
     @torch.no_grad()
     def query_sdf_grid(
@@ -46,7 +41,6 @@ class Mesher:
         """Evaluate the SDF on a regular grid. Returns (sdf (nx,ny,nz),
         mask (nx,ny,nz)) where mask marks cells with at least
         ``min(mesh_min_nn, k)`` neighbours."""
-        t0 = time.perf_counter()
         nx, ny, nz = dims
         xs = origin[0] + np.arange(nx) * res
         ys = origin[1] + np.arange(ny) * res
@@ -69,7 +63,6 @@ class Mesher:
             cnt_out[i:i + batch] = both[1].astype(np.int32)
         min_nn = min(self.cfg.mesh_min_nn, k)
         mask = cnt_out >= min_nn
-        self.query_s += time.perf_counter() - t0
         return (sdf_out.reshape(dims), mask.reshape(dims))
 
     def recon_aabb_mesh(
@@ -90,11 +83,9 @@ class Mesher:
         sdf, mask = self.query_sdf_grid(m, decoders, origin, dims, res)
         if cfg.skip_top_voxel > 0:
             mask[:, :, -cfg.skip_top_voxel:] = False
-        t0 = time.perf_counter()
         verts, tris = marching_tetrahedra(
             sdf, origin, res,
             mask=mask if cfg.mc_mask_on else None)
-        self.march_s += time.perf_counter() - t0
         colors = None
         if with_colors and len(verts) and cfg.color_on:
             colors = self.query_colors(m, decoders, verts)

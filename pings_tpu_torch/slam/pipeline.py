@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -68,9 +67,12 @@ from pings_tpu_torch.slam.loop_detector import (
 from pings_tpu_torch.slam.pgo import PoseGraph
 from pings_tpu_torch.utils import jax_random
 from pings_tpu_torch.utils import pose as hp
+from pings_tpu_torch.utils import trace
 from pings_tpu_torch.vis.packet import VisPacket, downsample_points
 
 MAX_FRAMES = 100000
+# process_frame's stages, in order: ``FrameReport.timings``' keys
+FRAME_STAGES = ("preprocess", "tracking", "loop", "map_update", "training")
 
 
 class FrameReport:
@@ -153,9 +155,6 @@ class SlamSystem:
         self.loop_events: List[dict] = []   # one entry per loop attempt
         self._last_track_res = float("nan")  # this frame's odometry residual
         self._last_loop_fid = -(10 ** 9)
-        # seconds of the last PoseGraph.try_loop_closure and of the last
-        # applied loop's re-posing (adjust_map, recreate_hash, the pool)
-        self.loop_times: Dict[str, float] = {}
         self._odom_noise_rng = np.random.default_rng(cfg.odom_noise_seed)
         # robot-stop detection
         self.stop_count = 0
@@ -206,18 +205,27 @@ class SlamSystem:
 
     # -- the frame loop -----------------------------------------------------
     def process_frame(self, frame: dict) -> FrameReport:
-        cfg = self.cfg
+        """Map one frame. ``FrameReport.timings`` holds the host seconds
+        of ``FRAME_STAGES``, each ending in a synchronize; the span
+        recorder (``utils.trace``), when on, records the frame as the root
+        ``process_frame`` with these stages and the spans below them."""
         rep = FrameReport()
         self.frame_id += 1
-        rep.frame_id = fid = self.frame_id
-        t0 = time.time()
+        rep.frame_id = self.frame_id
+        with trace.span("process_frame", root_id=self.frame_id):
+            self._process_frame(frame, rep)
+        return rep
 
+    def _process_frame(self, frame: dict, rep: FrameReport) -> None:
+        cfg = self.cfg
+        fid = rep.frame_id
+        stage = trace.stages(order=FRAME_STAGES, timings=rep.timings)
+        stage("begin")
         pre = preprocess_frame(frame, cfg, self.T_rel_last, cfg.deskew,
                                self.device)
-        rep.timings["preprocess"] = time.time() - t0
+        stage("preprocess")
 
         # ---------- odometry ----------
-        t1 = time.time()
         if fid == 0:
             T = np.eye(4)
             if pre.gt_pose is not None:
@@ -240,8 +248,6 @@ class SlamSystem:
                 rep.metrics["track_iter"] = res.iterations
                 rep.metrics["track_valid_ratio"] = res.valid_ratio
                 rep.metrics["track_degen"] = float(res.degenerate)
-                # device-to-host reads: one per iteration, one for the result
-                rep.metrics["track_syncs"] = res.iterations + 1
             else:
                 T = pre.gt_pose if pre.gt_pose is not None else T_guess
                 rep.tracking_valid = True
@@ -295,13 +301,13 @@ class SlamSystem:
             self.stop_count = (self.stop_count + 1
                                if (rot_close and tran_close) else 0)
             self.stop_status = self.stop_count > cfg.stop_frame_thre
-        self.travel_dev[fid] = self.travel[-1]
+        with trace.read("travel"):
+            self.travel_dev[fid] = self.travel[-1]
         rep.pose = self.poses[-1]
         self._sync()
-        rep.timings["tracking"] = time.time() - t1
+        stage("tracking")
 
         # ---------- loop closure ----------
-        t2 = time.time()
         if self.pgo is not None:
             self.pgo.add_frame_node(fid, self.poses[-1])
             if fid > 0:
@@ -320,24 +326,23 @@ class SlamSystem:
                 if rep.loop_closed:
                     self._last_loop_fid = fid
         self._sync()
-        rep.timings["loop"] = time.time() - t2
+        stage("loop")
 
         # ---------- map update + SDF supervision ----------
         # a stopped robot adds no new observations (except at start-up)
-        t3 = time.time()
         if (rep.tracking_valid and not self.aborted
                 and (not self.stop_status or fid < 5)):
             self._map_update(pre, fid, rep)
         self._sync()
-        rep.timings["map_update"] = time.time() - t3
+        stage("map_update")
 
         # ---------- training ----------
-        t4 = time.time()
         if rep.tracking_valid and not self.aborted:
             self._train(pre, fid, rep)
-        rep.n_points = int(self.m.count)
-        rep.timings["training"] = time.time() - t4
-        return rep
+        with trace.read("map_count"):
+            rep.n_points = int(self.m.count)
+        self._sync()
+        stage("training")
 
     def merged_point_cloud(self) -> np.ndarray:
         """(M, 6) xyz+rgb merged downsampled world-frame cloud
@@ -453,22 +458,21 @@ class SlamSystem:
             return _reject("uninformative")
         T_i_j = hp.se3_inv(self.poses[cand_fid]) @ T_loop
         old_poses = [p.copy() for p in self.pgo.poses]
-        t0 = time.time()
-        closed = self.pgo.try_loop_closure(cand_fid, fid, T_i_j)
-        self.loop_times["pgo"] = time.time() - t0
+        with trace.span("pgo"):
+            closed = self.pgo.try_loop_closure(cand_fid, fid, T_i_j)
         if not closed:
             return _reject("pgo_residual")
         # apply the corrections: poses, map, pool
-        t0 = time.time()
-        deltas = self.pgo.pose_deltas(old_poses)
-        self.poses = [p.copy() for p in self.pgo.poses]
-        pad = np.tile(np.eye(4), (MAX_FRAMES - len(deltas), 1, 1))
-        dd = torch.as_tensor(np.concatenate([deltas, pad]).astype(np.float32),
-                             device=self.device)
-        self.m = npm.recreate_hash(npm.adjust_map(self.m, dd))
-        self.pool = _transform_pool(self.pool, dd)
-        self._sync()
-        self.loop_times["correct"] = time.time() - t0
+        with trace.span("correct"):
+            deltas = self.pgo.pose_deltas(old_poses)
+            self.poses = [p.copy() for p in self.pgo.poses]
+            pad = np.tile(np.eye(4), (MAX_FRAMES - len(deltas), 1, 1))
+            dd_np = np.concatenate([deltas, pad]).astype(np.float32)
+            with trace.read("loop_deltas"):
+                dd = torch.as_tensor(dd_np, device=self.device)
+            self.m = npm.recreate_hash(npm.adjust_map(self.m, dd))
+            self.pool = _transform_pool(self.pool, dd)
+            self._sync()
         self._sync_params_from_map()
         # refresh the pooled keyframes' extrinsics from the corrected poses
         if self.campool is not None:
@@ -497,9 +501,11 @@ class SlamSystem:
         dev = self.device
         T = self.poses[-1]
         pts_w = (pre.points_l @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
-        pts = torch.as_tensor(pts_w, device=dev)
-        msk = torch.as_tensor(pre.mask, device=dev)
-        cols = torch.as_tensor(pre.colors, dtype=torch.float32, device=dev)
+        with trace.read("scan_to_map", n=3):
+            pts = torch.as_tensor(pts_w, device=dev)
+            msk = torch.as_tensor(pre.mask, device=dev)
+            cols = torch.as_tensor(pre.colors, dtype=torch.float32,
+                                   device=dev)
         valid_color = torch.zeros(len(pts_w), dtype=torch.bool, device=dev)
         if cfg.save_tsdf_mesh and fid % max(cfg.gs_keyframe_interval, 1) == 0:
             for cd in pre.cams.values():
@@ -523,11 +529,14 @@ class SlamSystem:
         if cfg.save_merged_pc:
             # eager in the JAX package too: the true division by the voxel
             keep = tf.voxel_down_sample_mask(pts, msk, cfg.vox_down_m * 2.0)
-            self._merged_pc.append(torch.cat([pts[keep], cols[keep]], dim=1)
-                                   .cpu().numpy().astype(np.float32))
+            with trace.read("merged_pc", n=3):
+                self._merged_pc.append(
+                    torch.cat([pts[keep], cols[keep]], dim=1)
+                    .cpu().numpy().astype(np.float32))
 
         thre = cfg.local_map_travel_dist_ratio * cfg.local_map_radius
-        origin = torch.as_tensor(T[:3, 3].astype(np.float32), device=dev)
+        with trace.read("origin"):
+            origin = torch.as_tensor(T[:3, 3].astype(np.float32), device=dev)
         n_dyn = None
         if cfg.dynamic_filter_on and fid > 0:
             # drop what lands in the map's stable free space (frame 0 has
@@ -559,7 +568,8 @@ class SlamSystem:
                                                           self.pool)
         sem = None
         if cfg.semantic_on and pre.sem is not None:
-            sem = torch.as_tensor(pre.sem, device=dev)
+            with trace.read("semantic_upload"):
+                sem = torch.as_tensor(pre.sem, device=dev)
         smp = sample_rays_cfg(self._gen, pts, cols, msk, origin, cfg,
                               sem_labels=sem, incid_cos=incid,
                               draws=ray_draws)
@@ -574,9 +584,11 @@ class SlamSystem:
         self.m = npm.accumulate_certainty(m, q)
         self._sur_mask = sur
         if fid > 0:
-            self.new_obs_ratio = float(n_new) / max(float(n_valid), 1.0)
+            with trace.read("new_obs", n=2):
+                self.new_obs_ratio = float(n_new) / max(float(n_valid), 1.0)
         if n_dyn is not None:
-            rep.metrics["dyn_dropped"] = int(n_dyn)
+            with trace.read("dynamic_count"):
+                rep.metrics["dyn_dropped"] = int(n_dyn)
 
     def _ensure_sdf(self):
         if self._sdf is None:
@@ -604,12 +616,15 @@ class SlamSystem:
         rep.metrics["sdf_iters"] = max(iters, 0)
         opt, params, step = self._sdf
         if ((not cfg.gs_on) or fid == 0 or not pre.cams) and iters > 0:
-            met = step(params, self.pool, self._gen, self.m, self.decoders,
-                       freeze, int(iters),
-                       draws=None if self.draws is None
-                       else self.draws.sdf_batches(int(iters), self.pool))
-            self._apply_sdf_params()
-            rep.metrics["sdf_bce"] = float(met.bce)
+            with trace.span("sdf_step"):
+                met = step(params, self.pool, self._gen, self.m,
+                           self.decoders, freeze, int(iters),
+                           draws=None if self.draws is None
+                           else self.draws.sdf_batches(int(iters),
+                                                       self.pool))
+                self._apply_sdf_params()
+                with trace.read("sdf_bce"):
+                    rep.metrics["sdf_bce"] = float(met.bce)
         if cfg.gs_on and pre.cams:
             self._train_gs(pre, fid, rep, freeze)
 
@@ -674,9 +689,11 @@ class SlamSystem:
                       file=sys.stderr, flush=True)
         return pkt
 
+    @trace.traced("render_cam")
     @torch.no_grad()
     def render_cam(self, cam: CamView):
-        """Render the map's current local window from ``cam``."""
+        """Render the map's current local window from ``cam`` (a root
+        ``render_cam`` of the span recorder when called on its own)."""
         cfg, m = self.cfg, self.m
         idx = local_indices(m.local_mask, self._local_size, m.capacity)
         local = LocalPointData(
@@ -762,47 +779,16 @@ class SlamSystem:
         cfg = self.cfg
         dev = self.device
         T = self.poses[-1]
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                        device=dev)
+
+        def f32(a):
+            with trace.read("keyframe_upload"):
+                return torch.as_tensor(np.asarray(a, np.float32), device=dev)
         # held-out eval frames never become keyframes
         held_out = (cfg.gs_eval_hold_out_every > 0
                     and fid % cfg.gs_eval_hold_out_every == 0)
         if fid % max(cfg.gs_keyframe_interval, 1) == 0 and not held_out:
-            pts_w = None
-            for cd in pre.cams.values():
-                rgb = torch.as_tensor(cd["img"], device=dev).to(
-                    torch.float32) / 255.0
-                h, w = rgb.shape[:2]
-                T_c_w = np.asarray(cd["T_c_l"], np.float64) @ hp.se3_inv(T)
-                if cd.get("depth") is not None:
-                    depth = f32(cd["depth"])
-                else:
-                    if pts_w is None:
-                        pts_w = torch.as_tensor(
-                            (pre.points_l @ T[:3, :3].T + T[:3, 3]).astype(
-                                np.float32), device=dev)
-                    depth = project_scan_to_cam(pts_w, pre.mask, T_c_w,
-                                                cd["K"], w, h, dev)
-                sky = cd.get("sky")
-                if self.mono_provider is not None:
-                    # a monocular depth map, fitted to the LiDAR's, fills
-                    # its holes (on the host, as in the JAX package)
-                    depth, mono_sky = densify_depth(
-                        np.asarray(cd["img"]), depth.cpu().numpy(),
-                        self.mono_provider, max_depth=cfg.max_range)
-                    depth = f32(depth)
-                    if sky is None:
-                        sky = mono_sky.astype(np.float32)
-                cam = CamView(
-                    K=f32(cd["K"]), T_c_w=f32(T_c_w), rgb=rgb, depth=depth,
-                    sky=f32(sky) if sky is not None
-                    else torch.zeros((h, w), device=dev),
-                    frame_id=fid)
-                slot = self.campool.add_keyframe(
-                    cam, T[:3, 3], fid,
-                    T_c_l=np.asarray(cd["T_c_l"], np.float64))
-                if slot is not None:
-                    self._reset_cam_slot(slot)
+            with trace.span("keyframes"):
+                self._add_keyframes(pre, fid, T, f32)
 
         gs_iters = cfg.gs_iters + self._adaptive_offset(fid)
         if self.stop_status:
@@ -813,8 +799,6 @@ class SlamSystem:
         batch_draws = (None if self.draws is None
                        else self.draws.gs_batches(gs_iters, self.pool))
         met = None
-        local_idx = local_indices(self.m.local_mask, self._local_size,
-                                  self.m.capacity)
         # per-frame tile-table cache: within this frame's iterations the
         # table is reused per (slot, level) and rebuilt every
         # raster_rebin_every uses or when the projected centres drift past
@@ -828,7 +812,7 @@ class SlamSystem:
         surrounding = None
         if self._sur_mask is not None:
             frozen = fid >= cfg.freeze_after_frame
-            with torch.no_grad():
+            with trace.span("surrounding"), torch.no_grad():
                 sur_local = gather_local_data(self.m, self._sur_mask,
                                               cfg.max_surrounding_points)
                 sur = spawn_gaussians(
@@ -846,81 +830,149 @@ class SlamSystem:
         # the same keyframe are grouped (in first-appearance order): the
         # same multiset of cameras trains, and the tile-table cache rebins
         # once per keyframe instead of on nearly every slot switch
-        plan = []
-        for _ in range(gs_iters):
-            pc = self.campool.sample()
-            if pc is None:
-                return
-            plan.append(pc)
-        order: Dict = {}
-        for pc in plan:
-            order.setdefault(pc.slot, []).append(pc)
-        plan = [pc for group in order.values() for pc in group]
+        with trace.span("plan"):
+            local_idx = local_indices(self.m.local_mask, self._local_size,
+                                      self.m.capacity)
+            plan = []
+            for _ in range(gs_iters):
+                pc = self.campool.sample()
+                if pc is None:
+                    return
+                plan.append(pc)
+            order: Dict = {}
+            for pc in plan:
+                order.setdefault(pc.slot, []).append(pc)
+            plan = [pc for group in order.values() for pc in group]
         self.gs_iter_log = []
         short_term_iter = []
         for it in range(gs_iters):
-            pc = plan[it]
-            level = base_level
-            depth_w = 1.0
-            if cfg.long_term_train_down and pc in self.campool.long:
-                level += 1
-                depth_w = 4.0
-            short_term_iter.append(level == base_level)
-            cam = pc.level(level)
-            h, w = cam.rgb.shape[:2]
-            gstep = self._ensure_gs(w, h)
-            if it == 0:
-                self._sync_params_from_map()
-            params = self._gs[1]
-            ckey = (pc.slot, level)
-            ent = bins_cache.get(ckey)
-            use_bins = (ent is not None
-                        and ent["uses"] < cfg.raster_rebin_every)
-            batch = ((self.pool, self._gen) if batch_draws is None
-                     else rp.pool_batch(self.pool, None, cfg.bs,
-                                        min(cfg.bs_new_sample, cfg.bs // 2),
-                                        draws=batch_draws[it]))
-            met, (bins_out, means2d, contrib) = gstep(
-                params, self.m, self.decoders, local_idx, cam, pc.slot,
-                batch, freeze, surrounding=surrounding, depth_w=depth_w,
-                bins=ent["bins"] if use_bins else None,
-                bin_means=ent["means"] if use_bins else None,
-                cached_contrib=ent["contrib"] if use_bins else None,
-                use_bins=use_bins, draw_batch=batch_draws is None,
-                stage_hook=stage_hook)
-            if use_bins:
-                ent["uses"] += 1
-                ent["bins"], ent["means"] = bins_out, means2d
-            elif bins_out is not None:
-                bins_cache[ckey] = {"bins": bins_out, "means": means2d,
-                                    "contrib": contrib, "uses": 1}
-            self.gs_iter_log.append((pc.slot, level, use_bins, met))
-        mets = [e[3] for e in self.gs_iter_log]
-        # one device-to-host read for the loop's failure counter
-        n_nonfinite = int(torch.stack([m.nonfinite for m in mets]).sum())
-        if met is not None:
-            self._apply_gs_params()
-            # online PSNR: mean over this frame's short-term base-level
-            # iterations; the last iteration if all were long-term views
-            st = [m for m, s in zip(mets, short_term_iter) if s]
-            psnr_v, l1_v = ((sum(m.psnr for m in st) / len(st),
-                             sum(m.rgb_l1 for m in st) / len(st))
-                            if st else (met.psnr, met.rgb_l1))
-            rep.metrics["gs_psnr"] = float(psnr_v)
-            rep.metrics["gs_l1"] = float(l1_v)
-            rep.metrics["sdf_bce"] = float(met.sdf_bce)
-            if n_nonfinite:
-                rep.metrics["gs_nonfinite_steps"] = n_nonfinite
+            with trace.span("gs_iter", device=dev):
+                met = self._gs_iter(plan[it], it, base_level, freeze,
+                                    local_idx, surrounding, bins_cache,
+                                    batch_draws, short_term_iter,
+                                    stage_hook)
+        with trace.span("apply"):
+            mets = [e[3] for e in self.gs_iter_log]
+            # one device-to-host read for the loop's failure counter
+            with trace.read("nonfinite_steps"):
+                n_nonfinite = int(torch.stack([m.nonfinite
+                                               for m in mets]).sum())
+            if met is not None:
+                self._apply_gs_params()
+                # online PSNR: mean over this frame's short-term base-level
+                # iterations; the last iteration if all were long-term views
+                st = [m for m, s in zip(mets, short_term_iter) if s]
+                psnr_v, l1_v = ((sum(m.psnr for m in st) / len(st),
+                                 sum(m.rgb_l1 for m in st) / len(st))
+                                if st else (met.psnr, met.rgb_l1))
+                with trace.read("gs_metrics", n=3):
+                    rep.metrics["gs_psnr"] = float(psnr_v)
+                    rep.metrics["gs_l1"] = float(l1_v)
+                    rep.metrics["sdf_bce"] = float(met.sdf_bce)
+                if n_nonfinite:
+                    rep.metrics["gs_nonfinite_steps"] = n_nonfinite
 
         # Gaussian invalidation: stable local points stranded off the SDF
         # zero level set stop spawning
         if cfg.gs_invalid_check_on and met is not None and fid > 0:
-            self.m = field.check_invalid_gs(
-                self.m, self.decoders, local_idx,
-                cfg.logistic_gaussian_ratio * cfg.sigma_sigmoid_m, 1.0,
-                cfg.dynamic_sdf_ratio_thre * cfg.voxel_size_m,
-                k=cfg.query_nn_k, stencil_r=cfg.num_nei_cells,
-                search_alpha=cfg.search_alpha, min_nn=cfg.query_nn_k)
+            with trace.span("invalidate"):
+                self.m = field.check_invalid_gs(
+                    self.m, self.decoders, local_idx,
+                    cfg.logistic_gaussian_ratio * cfg.sigma_sigmoid_m, 1.0,
+                    cfg.dynamic_sdf_ratio_thre * cfg.voxel_size_m,
+                    k=cfg.query_nn_k, stencil_r=cfg.num_nei_cells,
+                    search_alpha=cfg.search_alpha, min_nn=cfg.query_nn_k)
+
+    def _add_keyframes(self, pre: PreprocessedFrame, fid: int,
+                       T: np.ndarray, f32) -> None:
+        """Register the frame's cameras as keyframes: each camera's image,
+        its depth (the frame's own, or the scan splatted into it, filled
+        by the mono-depth model where one is set) and sky mask."""
+        cfg = self.cfg
+        dev = self.device
+        pts_w = None
+        for cd in pre.cams.values():
+            with trace.read("keyframe_image"):
+                img = torch.as_tensor(cd["img"], device=dev)
+            rgb = img.to(torch.float32) / 255.0
+            h, w = rgb.shape[:2]
+            T_c_w = np.asarray(cd["T_c_l"], np.float64) @ hp.se3_inv(T)
+            if cd.get("depth") is not None:
+                depth = f32(cd["depth"])
+            else:
+                if pts_w is None:
+                    pts_np = (pre.points_l @ T[:3, :3].T + T[:3, 3]).astype(
+                        np.float32)
+                    with trace.read("keyframe_scan"):
+                        pts_w = torch.as_tensor(pts_np, device=dev)
+                depth = project_scan_to_cam(pts_w, pre.mask, T_c_w,
+                                            cd["K"], w, h, dev)
+            sky = cd.get("sky")
+            if self.mono_provider is not None:
+                # a monocular depth map, fitted to the LiDAR's, fills
+                # its holes (on the host, as in the JAX package)
+                with trace.read("keyframe_depth"):
+                    lidar_depth = depth.cpu().numpy()
+                depth, mono_sky = densify_depth(
+                    np.asarray(cd["img"]), lidar_depth,
+                    self.mono_provider, max_depth=cfg.max_range)
+                depth = f32(depth)
+                if sky is None:
+                    sky = mono_sky.astype(np.float32)
+            cam = CamView(
+                K=f32(cd["K"]), T_c_w=f32(T_c_w), rgb=rgb, depth=depth,
+                sky=f32(sky) if sky is not None
+                else torch.zeros((h, w), device=dev),
+                frame_id=fid)
+            slot = self.campool.add_keyframe(
+                cam, T[:3, 3], fid,
+                T_c_l=np.asarray(cd["T_c_l"], np.float64))
+            if slot is not None:
+                self._reset_cam_slot(slot)
+
+    def _gs_iter(self, pc, it: int, base_level: int, freeze: bool,
+                 local_idx, surrounding, bins_cache: Dict, batch_draws,
+                 short_term_iter: List[bool], stage_hook):
+        """One joint GS+SDF iteration on keyframe ``pc``, with the frame's
+        tile-table cache; appends to ``gs_iter_log`` and returns the
+        step's metrics."""
+        cfg = self.cfg
+        level = base_level
+        depth_w = 1.0
+        if cfg.long_term_train_down and pc in self.campool.long:
+            level += 1
+            depth_w = 4.0
+        short_term_iter.append(level == base_level)
+        cam = pc.level(level)
+        h, w = cam.rgb.shape[:2]
+        gstep = self._ensure_gs(w, h)
+        if it == 0:
+            self._sync_params_from_map()
+        params = self._gs[1]
+        ckey = (pc.slot, level)
+        ent = bins_cache.get(ckey)
+        use_bins = (ent is not None
+                    and ent["uses"] < cfg.raster_rebin_every)
+        batch = ((self.pool, self._gen) if batch_draws is None
+                 else rp.pool_batch(self.pool, None, cfg.bs,
+                                    min(cfg.bs_new_sample, cfg.bs // 2),
+                                    draws=batch_draws[it]))
+        met, (bins_out, means2d, contrib) = gstep(
+            params, self.m, self.decoders, local_idx, cam, pc.slot,
+            batch, freeze, surrounding=surrounding, depth_w=depth_w,
+            bins=ent["bins"] if use_bins else None,
+            bin_means=ent["means"] if use_bins else None,
+            cached_contrib=ent["contrib"] if use_bins else None,
+            use_bins=use_bins, draw_batch=batch_draws is None,
+            stage_hook=stage_hook)
+        if use_bins:
+            ent["uses"] += 1
+            ent["bins"], ent["means"] = bins_out, means2d
+        elif bins_out is not None:
+            bins_cache[ckey] = {"bins": bins_out, "means": means2d,
+                                "contrib": contrib, "uses": 1}
+        self.gs_iter_log.append((pc.slot, level, use_bins, met))
+        return met
 
 
 @torch.no_grad()

@@ -20,12 +20,25 @@ from pings_tpu.utils import pose as hp
 from pings_tpu_torch.data.synthetic import SyntheticDataset
 from pings_tpu_torch.eval.traj import absolute_error
 from pings_tpu_torch.slam.pipeline import SlamSystem as TSlam
+from pings_tpu_torch.utils import trace
 from torch_slam_helpers import configs, one_torch_thread, run_slice  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def runs():
-    return run_slice()
+    """``run_slice()`` with the port's span recorder on."""
+    trace.reset()
+    trace.enable()
+    try:
+        return run_slice()
+    finally:
+        trace.disable()
+
+
+@pytest.fixture(scope="module")
+def frame_roots(runs):
+    """The port's ``process_frame`` roots of ``runs``, by frame id."""
+    return {r.id: r for r in trace.roots("process_frame")}
 
 
 def test_frame0_map_equal(runs):
@@ -43,7 +56,7 @@ COUNT_REL = (0.02, 0.02, 0.02, 0.04)  # sweep max 0, 0.4%, 1.2%, 3.2%
 BCE_REL = (2e-3, 0.02, 0.02, 0.02)   # sweep max 9.6e-4, 0.6%, 1.1%, 1.1%
 
 
-def test_poses_and_tracking(runs):
+def test_poses_and_tracking(runs, frame_roots):
     """Frames 0 and 1 are tracked against frame-0 maps trained alike:
     within 2 cm and 0.3 deg. Later frames start from the constant-velocity
     guess of the earlier ones and track against maps built at those poses,
@@ -61,7 +74,12 @@ def test_poses_and_tracking(runs):
         assert tr.tracking_valid == jr.tracking_valid
         assert abs(tn - jn) <= COUNT_REL[i] * jn, (i, tn, jn)
         if i:
-            assert tr.metrics["track_syncs"] == tr.metrics["track_iter"] + 1
+            # the tracker's device-to-host reads: a stop flag an iteration
+            # and the result
+            root = frame_roots[tr.frame_id]
+            assert sum(len(root.find(n)) for n in (
+                "read/track_stop", "read/track_result")) == \
+                tr.metrics["track_iter"] + 1
             assert tr.metrics["sdf_iters"] == jr.metrics["sdf_iters"]
             np.testing.assert_allclose(tr.metrics["new_obs_ratio"],
                                        jr.metrics["new_obs_ratio"], atol=0.02)
