@@ -29,7 +29,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
            2e-4 of each column's magnitude on all but 0.2% of the entries,
            5e-2 of it on the rest, per slot (identity table, no atomics
            between slots) and per Gaussian (atomics); the difference
-           between two launches on the same input is printed.
+           between two launches on the same input is printed. The
+           feature tables' gradient scatter (``ops.row_gather``,
+           ``csrc/row_scatter.cu``) at the kitti cell's five gathers of a
+           GS iteration (``row_scatter_check``): the kernel and PyTorch's
+           own gradient of ``t[idx]`` within 2e-6 of each row's sum of
+           magnitudes of the float64 sum (they add in other orders), two
+           launches equal bit for bit, the dump row an exact 0 under the
+           callers' masks, one launch per backward through
+           ``gather_rows`` and no index kernel of PyTorch's; its times
+           beside the plain version's, PyTorch's index backward's and the
+           bound (bytes).
 3. small   render one replica view at 160x90 through ``render()`` on the
            card and on the CPU (the plain versions), and compare; then 3
            steps of ``make_gsdf_step`` at 96x64 on the card (kernels) and
@@ -692,6 +702,49 @@ def render_kw(cfg, gs_type=None):
                 precision=cfg.raster_precision, device="cuda")
 
 
+# the feature tables' gradient scatters (ops.row_gather's kernel) of each
+# training path, by path: main() prints their sum as the kernel's launches
+SCATTERS = {}
+
+
+def reset_launches(rb):
+    """Zero the blend kernels' launch counts and the feature tables'
+    gradient scatters (the kernel's launches and the plain version's
+    runs)."""
+    from pings_tpu_torch.ops import row_gather as rg
+
+    rb.reset_launches()
+    rg.LAUNCHES = rg.PLAIN_RUNS = 0
+
+
+def frame_scatters(name, reps):
+    """The gradient scatters of a path's frames ``reps``, counted since
+    ``reset_launches``: each frame's ``row_scatters`` is 5 a GS iteration
+    (the window, the Gaussian-SDF centres and their probes, the SDF batch
+    and its probes) plus, where the SDF step ran on its own, 2 an SDF
+    iteration (its batch and their probes); their sum is the kernel's
+    launches, and none took the plain version. A frame whose camera pool
+    is still empty (kitti's frame 0 is held out) reports its ``gs_iters``
+    and runs none: the GS iterations ran where ``gs_psnr`` is reported.
+    Records the sum under ``name`` in ``SCATTERS``."""
+    from pings_tpu_torch.ops import row_gather as rg
+
+    for rep in reps:
+        m = rep.metrics
+        gs = m.get("gs_iters", 0) if "gs_psnr" in m else 0
+        sdf = m.get("sdf_iters", 0)
+        if m["row_scatters"] - 5 * gs not in (0, 2 * sdf):
+            raise AssertionError(
+                f"{name} frame {rep.frame_id}: {m['row_scatters']} gradient "
+                f"scatters for {gs} GS and {sdf} SDF iterations")
+    n = sum(r.metrics["row_scatters"] for r in reps)
+    if n < 1 or n != rg.LAUNCHES or rg.PLAIN_RUNS:
+        raise AssertionError(f"{name}: the frames counted {n} gradient "
+                             f"scatters, the kernel launched {rg.LAUNCHES}, "
+                             f"the plain version ran {rg.PLAIN_RUNS}")
+    SCATTERS[name] = n
+
+
 def main_path(torch, rb, name, run_dir, T_c_l, K, W, H, pick,
               gs_type=None):
     """Load a checkpoint and render its saved poses ``pick`` through
@@ -710,7 +763,7 @@ def main_path(torch, rb, name, run_dir, T_c_l, K, W, H, pick,
     torch.cuda.synchronize()
     kw = render_kw(cfg, gs_type)
     ms = []
-    rb.reset_launches()
+    reset_launches(rb)
     for local, cam in views:
         t0 = time.perf_counter()
         res = render(local, system.decoders, cam, W, H, **kw)
@@ -884,6 +937,212 @@ def kernel_times(torch, rb, attr16, bins, ntx, nty, mode, kind="fwd",
               f"fp32_ops_hits={ops_hits} eager_ms={eager:.5f} "
               f"kernel_ms_rounds={[round(x, 5) for x in ks]}")
     return ms, plain, bound, by, detail, bound_hits
+
+
+# the feature tables' gradient scatter at the kitti cell's shapes: the
+# local window (131,072 rows, 86% of them the dump row) and the four
+# neighbour tables of a GS iteration (centres and SDF batch, each with its
+# 6 central-difference probes), 30% of their neighbours invalid
+# (rows of points, probes a point; None: the window)
+ROW_SCATTER_SHAPES = {"window": (131072, None), "centres": (256, 1),
+                      "centre_probes": (256, 6), "batch": (4096, 1),
+                      "batch_probes": (4096, 6)}
+# the kernel sums each row in a tree of fixed shape (a segmented scan over
+# a chunk, then the chunks' partials) where the plain version and
+# PyTorch's own gradient add entry by entry: both are held to the float64
+# sum, within this share of the row's sum of magnitudes (float32's 6e-8
+# for each of the at most about 30 levels of the kernel's tree)
+ROW_SCATTER_TOL = 2e-6
+
+
+def row_scatter_indices(torch, n, probes, cap, seed):
+    """Row indices of the kitti cell's gathers: the window's real rows are
+    distinct and ascending (``local_indices``), the rest of its ``n`` the
+    dump row ``cap``; the neighbour table of ``n`` points draws 6 rows a
+    point from 10,000 of those rows (a row has several neighbours), 30% of
+    them invalid, and repeats each point's rows ``probes`` times, as
+    ``sdf_grad_numerical_nn`` does."""
+    g = torch.Generator().manual_seed(seed)
+    real = torch.sort(torch.randperm(cap, generator=g)[:18350])[0]
+    if probes is None:
+        return torch.cat([real, torch.full((n - real.numel(),), cap)])
+    pool = real[torch.randperm(real.numel(), generator=g)[:10000]]
+    idx = pool[torch.randint(0, pool.numel(), (n, 6), generator=g)]
+    idx[torch.rand(n, 6, generator=g) < 0.3] = cap
+    return torch.repeat_interleave(idx, probes, dim=0)
+
+
+def row_scatter_check(torch, width=8, reps=20):
+    """``ops.row_gather`` on the card at the kitti shapes: the kernel
+    (through ``row_scatter``) and PyTorch's own gradient of ``t[idx]`` held
+    to the float64 sum, the plain version's float32 sum beside it; two
+    launches on the same inputs equal bit for bit (and, beside them, the
+    rows in which two runs of the plain version on the card, whose
+    ``index_add_`` adds by atomics, differ); the dump row an exact
+    zero where the callers' masks zero its cotangents; one launch per
+    backward through ``gather_rows``, and none of PyTorch's index
+    kernels. Per shape the queued ms of the whole scatter (zero fill, sort
+    and both passes), of the kernel's two passes alone, of the plain
+    version (``index_add_`` on the card) and of the PyTorch index backward
+    it replaces (``index_put_`` with accumulate, one a table), and the
+    bound: bytes (the int64 index, the cotangents, the dense gradients)
+    over 3.35 TB/s. Returns ({shape: its numbers}, their sums over the
+    five shapes)."""
+    from pings_tpu_torch.ops import row_gather as rg
+
+    cap = 1 << 20
+    rows = cap + 1
+    dev = torch.device("cuda")
+
+    def queued(fn, n=reps):
+        fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(4e6))
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    out = {}
+    for k, (name, (n, probes)) in enumerate(ROW_SCATTER_SHAPES.items()):
+        idx_c = row_scatter_indices(torch, n, probes, cap, k)
+        shape = tuple(idx_c.shape)
+        gen = torch.Generator().manual_seed(100 + k)
+        gs_c = [torch.randn(shape + (width,), generator=gen)
+                for _ in range(2)]
+        idx, gs = idx_c.to(dev), [g.to(dev) for g in gs_c]
+        flat = idx_c.reshape(-1)
+        exact, mag = [], []
+        for g in gs_c:
+            g2 = g.reshape(-1, width).double()
+            exact.append(torch.zeros(rows, width, dtype=torch.float64)
+                         .index_add_(0, flat, g2))
+            mag.append(torch.zeros(rows, width, dtype=torch.float64)
+                       .index_add_(0, flat, g2.abs()))
+
+        def held(what, got):
+            worst = 0.0
+            for d, e, m_ in zip(got, exact, mag):
+                rel = ((d.cpu().double() - e).abs()
+                       / (m_ + 1e-30)).max().item()
+                worst = max(worst, rel)
+            if not worst <= ROW_SCATTER_TOL:
+                raise AssertionError(f"row_scatter {name}: {what} is "
+                                     f"{worst:.3e} of a row's magnitude "
+                                     "off the float64 sum")
+            return worst
+
+        n0 = rg.LAUNCHES
+        d1 = rg.row_scatter(idx, gs, rows)
+        d2 = rg.row_scatter(idx, gs, rows)
+        torch.cuda.synchronize()
+        if rg.LAUNCHES != n0 + 2:
+            raise AssertionError(f"row_scatter {name}: {rg.LAUNCHES - n0} "
+                                 "launches for two calls")
+        if not all(torch.equal(a, b) for a, b in zip(d1, d2)):
+            raise AssertionError(f"row_scatter {name}: two launches on the "
+                                 "same inputs differ")
+        e_kernel = held("the kernel", d1)
+        plain = rg.row_scatter_ref(idx_c, gs_c, rows)
+        e_plain = max(((p_.double() - e).abs() / (m_ + 1e-30)).max().item()
+                      for p_, e, m_ in zip(plain, exact, mag))
+        d_plain = max((a.cpu() - b).abs().max().item()
+                      for a, b in zip(d1, plain))
+        # the plain version on the card adds by atomics: the rows whose
+        # bits differ between two of its runs on the same inputs
+        p1 = rg.row_scatter_ref(idx, gs, rows)
+        p2 = rg.row_scatter_ref(idx, gs, rows)
+        plain_rerun_rows = sum(int((a != b).any(dim=1).sum())
+                               for a, b in zip(p1, p2))
+        # the callers' masks zero the dump row's cotangents
+        masked = [torch.where((idx == cap)[..., None], 0.0, g) for g in gs]
+        dm = rg.row_scatter(idx, masked, rows)
+        if not all(bool((d[cap] == 0).all()) for d in dm):
+            raise AssertionError(f"row_scatter {name}: the dump row of a "
+                                 "masked cotangent is not an exact 0")
+
+        # through autograd: one launch a backward, no index kernel of
+        # PyTorch's; and PyTorch's own gradient of t[idx] for comparison
+        tables = [torch.zeros(rows, width, device=dev, requires_grad=True)
+                  for _ in range(2)]
+        n0 = rg.LAUNCHES
+        tp = torch.profiler
+        with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+            o = rg.gather_rows(tables, idx)
+            sum((x * g).sum() for x, g in zip(o, gs)).backward()
+            torch.cuda.synchronize()
+        if rg.LAUNCHES != n0 + 1:
+            raise AssertionError(f"row_scatter {name}: {rg.LAUNCHES - n0} "
+                                 "launches for one backward")
+        names = {e.key for e in prof.key_averages()}
+        lib_k = sorted(n_ for n_ in names if "index" in n_.lower()
+                       and ("backward" in n_.lower() or "put" in n_.lower()
+                            or "scatter" in n_.lower()))
+        if lib_k:
+            raise AssertionError(f"row_scatter {name}: PyTorch's index "
+                                 f"kernels ran in the backward: {lib_k}")
+        if not all(torch.equal(t.grad, d) for t, d in zip(tables, d1)):
+            raise AssertionError(f"row_scatter {name}: the autograd path's "
+                                 "gradient is not the wrapper's")
+        for t in tables:
+            t.grad = None
+        sum((t[idx] * g).sum() for t, g in zip(tables, gs)).backward()
+        e_library = held("PyTorch's index backward",
+                         [t.grad for t in tables])
+
+        # times
+        keys, perm = torch.sort(idx.reshape(-1).to(torch.int32), stable=True)
+        g2 = [g.reshape(-1, width).contiguous() for g in gs]
+        zs = [torch.zeros(rows, width, device=dev) for _ in range(2)]
+        ms = queued(lambda: rg.row_scatter(idx, gs, rows))
+        passes = queued(lambda: rg.launch(keys, perm, g2, zs, rows))
+        plain_ms = queued(lambda: rg.row_scatter_ref(idx, gs, rows))
+        zero = [torch.zeros(rows, width, device=dev) for _ in range(2)]
+        library_ms = queued(lambda: [
+            z.zero_().index_put_((idx,), g, accumulate=True)
+            for z, g in zip(zero, gs)])
+        E = idx.numel()
+        nbytes = E * 8 + 2 * E * width * 4 + 2 * rows * width * 4
+        bound = nbytes / PEAK_BYTES * 1e3
+        out[name] = dict(entries=E, dump_share=float((idx_c == cap).float()
+                                                     .mean()),
+                         ms=ms, passes_ms=passes, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound,
+                         err_kernel=e_kernel, err_library=e_library,
+                         err_plain=e_plain, kernel_vs_plain=d_plain,
+                         plain_rerun_rows=plain_rerun_rows)
+        log(f"row_scatter {name} {shape}: " + ", ".join(
+            f"{k_}={v:.5g}" if isinstance(v, float) else f"{k_}={v}"
+            for k_, v in out[name].items()))
+    # the scalar path (widths not a multiple of 4) and one table alone, on
+    # the probes' indices
+    idx_c = row_scatter_indices(torch, 4096, 6, cap, 9)
+    gen = torch.Generator().manual_seed(9)
+    for widths in ((6, 3), (5,)):
+        gs_c = [torch.randn(tuple(idx_c.shape) + (f,), generator=gen)
+                for f in widths]
+        got = rg.row_scatter(idx_c.to(dev), [g.to(dev) for g in gs_c], rows)
+        for d, g in zip(got, gs_c):
+            g2 = g.reshape(-1, g.shape[-1]).double()
+            e = torch.zeros(rows, g2.shape[1], dtype=torch.float64
+                            ).index_add_(0, idx_c.reshape(-1), g2)
+            m_ = torch.zeros_like(e).index_add_(0, idx_c.reshape(-1),
+                                                g2.abs())
+            rel = ((d.cpu().double() - e).abs() / (m_ + 1e-30)).max().item()
+            if not rel <= ROW_SCATTER_TOL:
+                raise AssertionError(f"row_scatter widths {widths}: {rel:.3e}"
+                                     " of a row's magnitude off")
+        log(f"row_scatter widths {widths} (scalar path): within "
+            f"{ROW_SCATTER_TOL} of the float64 sum")
+    tot = {k_: sum(v[k_] for v in out.values())
+           for k_ in ("ms", "passes_ms", "plain_ms", "library_ms",
+                      "bound_ms")}
+    log("row_scatter, the five calls of a kitti GS iteration: "
+        + ", ".join(f"{k_}={v:.4f}" for k_, v in tot.items()))
+    return out, tot
 
 
 def small_train(torch, run_dir):
@@ -1083,7 +1342,7 @@ def train_path(torch, rb, name, system, frames, iters):
     mode = {"gaussian_surfel": "surfel", "3d_gs": "3dgs"}[system.cfg.gs_type]
     gs_mask0 = system.m.valid_gs_mask.clone()
     torch.cuda.reset_peak_memory_stats()
-    rb.reset_launches()
+    reset_launches(rb)
     for fid in fids[:-1]:
         run_train_gs(torch, system, frames, fid, 0)
     if any(rb.LAUNCHES.values()):
@@ -1102,6 +1361,14 @@ def train_path(torch, rb, name, system, frames, iters):
         raise AssertionError(f"{name}: launches fwd/bwd/contrib {counts}, "
                              f"expected {(iters, iters, n_fresh)}; other "
                              f"mode {others}")
+    # the gradient scatters: 5 a GS iteration (_train_gs runs no SDF step)
+    from pings_tpu_torch.ops import row_gather as rg
+
+    if rg.LAUNCHES != 5 * iters or rg.PLAIN_RUNS:
+        raise AssertionError(f"{name}: {rg.LAUNCHES} gradient scatters "
+                             f"(plain {rg.PLAIN_RUNS}) for {iters} "
+                             "iterations")
+    SCATTERS[f"train {name}"] = rg.LAUNCHES
     if "gs_nonfinite_steps" in rep.metrics:
         raise AssertionError(f"{name}: {rep.metrics['gs_nonfinite_steps']} "
                              "steps skipped for non-finite gradients")
@@ -1183,7 +1450,7 @@ def slam_run(torch, rb, name, system, frames, verbose=True):
     are zeroed just before and read just after. Returns (reports, host ms
     per frame, launches (fwd, bwd, contrib) per mode)."""
     reps, ms = [], []
-    rb.reset_launches()
+    reset_launches(rb)
     for frame in frames:
         before = (sum(rb.LAUNCHES.values()), sum(rb.BWD_LAUNCHES.values()),
                   sum(rb.CONTRIB_LAUNCHES.values()))
@@ -1215,6 +1482,7 @@ def slam_run(torch, rb, name, system, frames, verbose=True):
                 f"fwd/bwd/contrib {[a - b for a, b in zip(n, before)]}")
     launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
                     rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    frame_scatters(f"slam {name}", reps)
     for rep in reps:
         bad = [k for k in ("sdf_bce", "gs_psnr", "gs_l1", "track_res_m")
                if k in rep.metrics and not np.isfinite(rep.metrics[k])]
@@ -1365,7 +1633,7 @@ def slam_loop(torch, rb, n=LOOP_FRAMES, verbose=False, **kw):
     system = SlamSystem(cfg, device="cuda")
     system.cfg.gs_on = False   # GS from the frame after the first loop
     reps, ms, pgo_ms, per_frame, gt = [], [], [], [], []
-    rb.reset_launches()
+    reset_launches(rb)
     for i in range(n):
         frame = ds[i]
         gt.append(frame["gt_pose"])
@@ -1438,6 +1706,7 @@ def slam_loop(torch, rb, n=LOOP_FRAMES, verbose=False, **kw):
     log(f"slam loop: loop_events {json.dumps(system.loop_events)}")
     launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
                     rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    frame_scatters("slam loop", reps)
     lost = [r.frame_id for r in reps[1:] if not r.tracking_valid]
     if (lost or system.aborted
             or abs(system.travel[-1] - gt_travel) > 0.1 * gt_travel):
@@ -1546,8 +1815,8 @@ def cli_kitti(torch, rb):
         "frames equal kitti_sequence's (scans, images, poses, rig)")
 
     system, launches, mem, wall, run_dir = cli_run(
-        torch, rb, [cfg_file, "--data-path", data, "--range", "0", str(n),
-                    "1"])
+        torch, rb, "cli kitti", [cfg_file, "--data-path", data, "--range",
+                                 "0", str(n), "1"])
     reps, ms = system.reports, system.ms
     log_frames("cli kitti", system)
     files = ("config_all.yaml", "run_info.json", "poses_kitti.txt",
@@ -1759,7 +2028,7 @@ def serve_2dgs(torch, rb, name, cfg, system, views, W, H, reps=3):
 
     kw = render_kw(cfg, "2d_gs")
     first_ms, peak, cpu_s = [], [], []
-    rb.reset_launches()
+    reset_launches(rb)
     for local, cam in views:
         r, t_ms, _, gib = timed_render(torch, cfg, system, (local, cam), W,
                                        H, "2d_gs")
@@ -1887,8 +2156,9 @@ def cli_kitti_2dgs(torch, rb, data, n=12):
     cli.ControlLoop = Primed
     try:
         system, launches, mem, wall, run_dir = cli_run(
-            torch, rb, [cfg_file, "--data-path", data, "--range", "0",
-                        str(n), "1", "--vis-every", "4"])
+            torch, rb, "cli kitti 2dgs", [
+                cfg_file, "--data-path", data, "--range", "0", str(n), "1",
+                "--vis-every", "4"])
     finally:
         cli.ControlLoop = Primed.__mro__[1]
     reps, ms = system.reports, system.ms
@@ -2146,7 +2416,7 @@ def inspect_run(torch, rb, run_dir, argv):
 
     im.Mesher, im.eval_heldout, im.render, im.image_metrics = (
         Kept, timed_eval, timed_render, timed_metrics)
-    rb.reset_launches()
+    reset_launches(rb)
     try:
         t0 = time.perf_counter()
         rep = im.main([run_dir, *argv, "--device", "cuda"])
@@ -2245,8 +2515,9 @@ def cli_replica(torch, rb, data, n=10):
     cfg_file = derived_config("replica_synth", tmp, eval=dict(
         save_tsdf_mesh=True, save_merged_pc=True, mc_res_m=MESH_RES))
     system, launches, mem, wall, run_dir = cli_run(
-        torch, rb, [cfg_file, "--no-track", "--save-mesh", "--data-path",
-                    data, "--range", "0", str(n), "1"])
+        torch, rb, "cli replica", [cfg_file, "--no-track", "--save-mesh",
+                                   "--data-path", data, "--range", "0",
+                                   str(n), "1"])
     log_frames("cli replica", system)
     outputs = ("mesh.ply", "tsdf_mesh.ply", "merged_point_cloud.ply")
     missing = [f for f in outputs + ("metrics_table.csv", "summary.json",
@@ -2397,11 +2668,12 @@ def slam_small(torch, rb):
     return launches
 
 
-def cli_run(torch, rb, argv):
+def cli_run(torch, rb, name, argv):
     """``pings_tpu_torch.cli.main(argv)`` on cuda with the system timed
     frame by frame (``recorded_system``) and the launch counts and the
-    peak memory zeroed just before; returns (system, launches per mode,
-    peak GiB, wall s, run directory)."""
+    peak memory zeroed just before; its frames' gradient scatters are
+    checked and recorded under ``name`` (``frame_scatters``). Returns
+    (system, launches per mode, peak GiB, wall s, run directory)."""
     import tempfile
 
     from pings_tpu_torch import cli
@@ -2411,7 +2683,7 @@ def cli_run(torch, rb, argv):
     cli.SlamSystem = Recorded
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rb.reset_launches()
+    reset_launches(rb)
     try:
         t0 = time.perf_counter()
         cli.main(argv + ["--output", out, "--quiet", "--device", "cuda"])
@@ -2420,6 +2692,7 @@ def cli_run(torch, rb, argv):
         cli.SlamSystem = Recorded.__mro__[1]
     launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
                     rb.CONTRIB_LAUNCHES[m]) for m in rb.MODES}
+    frame_scatters(name, Recorded.last.reports)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     run_dir = [os.path.join(out, d) for d in os.listdir(out)][0]
     return Recorded.last, launches, mem, wall, run_dir
@@ -2658,8 +2931,8 @@ def kitti_options(torch, rb, kitti_data, n=12):
     dist = deskew_check(torch, ds, n - 1, poses, world)
 
     system, launches, mem, wall, run_dir = cli_run(
-        torch, rb, [cfg_file, "--data-path", data, "--range", "0", str(n),
-                    "1"])
+        torch, rb, "kitti options", [cfg_file, "--data-path", data,
+                                     "--range", "0", str(n), "1"])
     log_frames("kitti options", system)
     reps, ms = system.reports, system.ms
     cfg = system.cfg
@@ -2779,9 +3052,9 @@ def bag_lidar(torch, rb, seq, ref_poses, n=12):
         "scan (opening included) "
         + ", ".join(f"{k} {v:.1f}" for k, v in t_read.items()))
     system, launches, mem, wall, run_dir = cli_run(
-        torch, rb, [cfg_file, "--loader", "rosbag", "--seq",
-                    "/velodyne_points", "--data-path", bag, "--no-gs",
-                    "--range", "0", str(n), "1"])
+        torch, rb, "bag lidar", [cfg_file, "--loader", "rosbag", "--seq",
+                                 "/velodyne_points", "--data-path", bag,
+                                 "--no-gs", "--range", "0", str(n), "1"])
     log_frames("bag lidar", system)
     reps, ms = system.reports, system.ms
     ate = relative_ate(system.poses, ref_poses[:n])
@@ -2846,9 +3119,9 @@ def replica_tracked(torch, rb, data, n=10):
     for orbit, path, gs in (("60-pose", data, True),
                             ("240-pose", fine, False)):
         argv = [cfg_file, "--data-path", path, "--range", "0", str(n), "1"]
-        system, launches, mem, wall, _ = cli_run(
-            torch, rb, argv + ([] if gs else ["--no-gs"]))
         name = f"replica tracked {orbit}" + ("" if gs else " --no-gs")
+        system, launches, mem, wall, _ = cli_run(
+            torch, rb, name, argv + ([] if gs else ["--no-gs"]))
         log_frames(name, system)
         reps, ms = system.reports, system.ms
         gt = dataset_factory("replica", path, "room_synth", cfg).gt_poses()
@@ -3167,6 +3440,7 @@ def par_work(rank, world, port, backend, ref_dir, frames, scan, T_c_l, K,
     from pings_tpu_torch.models.spawn import local_indices, spawn_gaussians
     from pings_tpu_torch.ops import raster_blend as rb
     from pings_tpu_torch.ops import rasterize as rz
+    from pings_tpu_torch.ops import row_gather as rg
     from pings_tpu_torch.parallel.distributed import (
         all_gather_rows, all_reduce_mean, init_distributed, runtime_info,
         shard_rows)
@@ -3262,7 +3536,7 @@ def par_work(rank, world, port, backend, ref_dir, frames, scan, T_c_l, K,
     # the sharded paths (counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rb.reset_launches()
+    reset_launches(rb)
     with torch.no_grad():
         res["render_sharded_ms"], out_rs = host_ms(
             torch, lambda: render_sharded(mesh, *gs_args, bg=bg, tile=tile,
@@ -3327,10 +3601,17 @@ def par_work(rank, world, port, backend, ref_dir, frames, scan, T_c_l, K,
     args_dp = (params, system.m, system.decoders, local_idx, cams, slots,
                sdf_batch, freeze)
     torch.cuda.synchronize()
+    n0 = rg.LAUNCHES
     t0 = time.perf_counter()
     met = dp(*args_dp)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
+    # the rank's cameras' windows, centres and their probes, and the SDF
+    # batch and its probes: one gradient scatter each
+    n_dp = rg.LAUNCHES - n0
+    if n_dp != 3 * (len(pcs) // world) + 2:
+        raise AssertionError(f"{tag} dp step: {n_dp} gradient scatters for "
+                             f"{len(pcs) // world} cameras")
     res["dp"] = dict(
         metrics={k: float(v) for k, v in met._asdict().items()},
         n_cams=len(pcs), first_ms=first_ms,
@@ -3371,9 +3652,13 @@ def par_work(rank, world, port, backend, ref_dir, frames, scan, T_c_l, K,
         return step, float(step(params, system.m, system.decoders,
                                 local_idx, cam_g))
 
+    n0 = rg.LAUNCHES
     t0 = time.perf_counter()
     gstep, psnr = gauss_step()
     torch.cuda.synchronize()
+    if rg.LAUNCHES != n0 + 1:        # the window's gather
+        raise AssertionError(f"{tag} Gaussian-sharded step: "
+                             f"{rg.LAUNCHES - n0} gradient scatters")
     grad_of = lambda: [None if t.grad is None else t.grad.detach().clone()
                        for t in leaves]
     res["gs"] = dict(psnr=psnr, first_ms=(time.perf_counter() - t0) * 1e3,
@@ -3394,6 +3679,10 @@ def par_work(rank, world, port, backend, ref_dir, frames, scan, T_c_l, K,
     res["launches"] = {k: dict(v) for k, v in (
         ("fwd", rb.LAUNCHES), ("bwd", rb.BWD_LAUNCHES),
         ("contrib", rb.CONTRIB_LAUNCHES))}
+    if rg.PLAIN_RUNS:
+        raise AssertionError(f"{tag} {rg.PLAIN_RUNS} plain gradient "
+                             "scatters on the card")
+    res["scatters"] = rg.LAUNCHES
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the steps against the 1-rank group's (whose rank 0 writes them)
@@ -3423,11 +3712,13 @@ def parallel(torch, frames, scan, T_c_l, K, view_fid):
     sharded renders and tile-sharded blend are held against its own
     one-process versions; the steps of the 2- and 4-rank groups against
     the 1-rank group's; the parameters after a step equal on every rank.
-    Returns the launches of the sharded paths, summed over every rank."""
+    Returns the launches of the sharded paths, summed over every rank;
+    their gradient scatters go to ``SCATTERS``."""
     import tempfile
 
     card = smi("name,power.limit")
     launches = {}
+    SCATTERS["parallel"] = 0
     with tempfile.TemporaryDirectory() as ref_dir:
         for world, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
             t0 = time.perf_counter()
@@ -3467,6 +3758,7 @@ def parallel(torch, frames, scan, T_c_l, K, view_fid):
                     for mode, n in counts.items():
                         launches[kind, mode] = launches.get(
                             (kind, mode), 0) + n
+                SCATTERS["parallel"] += res["scatters"]
                 dp, gs = res["dp"], res["gs"]
                 log(f"parallel {world} ({backend}) rank {r} [{card}; every "
                     f"rank shares this one card]: render_sharded "
@@ -3490,7 +3782,8 @@ def parallel(torch, frames, scan, T_c_l, K, view_fid):
                     f"); vs one process: "
                     + ", ".join(f"{k} {v}" for k, v in res["errs"].items())
                     + f"; tables {res['tables']}; launches "
-                    f"{res['launches']}; runtime_info {res['info']}")
+                    f"{res['launches']}, gradient scatters "
+                    f"{res['scatters']}; runtime_info {res['info']}")
             log(f"parallel {world} ({backend}): group wall {wall:.1f} s")
     log("parallel: the overheads of sharding on one card, not a scaling "
         "result: every rank of every group shares one H100")
@@ -3563,7 +3856,7 @@ def bench(torch, rb):
     from pings_tpu_torch import bench as pb
 
     torch.cuda.empty_cache()
-    rb.reset_launches()
+    reset_launches(rb)
     t0 = time.perf_counter()
     res = pb.main(device="cuda")
     launches = {m: (rb.LAUNCHES[m], rb.BWD_LAUNCHES[m],
@@ -3698,6 +3991,8 @@ def main():
                 torch, rb, a, bins, ntx, nty, mode, sup, label)[0])
     log("blend_fwd, blend_bwd and blend_contrib refuse attribute rows off a "
         "16-byte boundary")
+    # the feature tables' gradient scatter at the kitti shapes
+    rs, rs_tot = row_scatter_check(torch)
 
     # kitti: cam2 of scripts/make_validation_data.py:262-267
     T_c_l_kitti = np.eye(4)
@@ -3911,6 +4206,20 @@ def main():
             "bound_hits_ms": bhits})
         if n_launch < 1:
             raise AssertionError(f"{name}: no launch on a main path")
+    # the training paths' own scatters (small_train and train_times
+    # are left out, as they are of the blend kernels' counts)
+    log(f"gradient scatters by path: {json.dumps(SCATTERS)}")
+    n_launch = sum(SCATTERS.values())
+    kernels.append({
+        "name": "row_scatter", "route": "cuda",
+        "source": CSRC + "row_scatter.cu", "replaces": None,
+        "launches": n_launch,
+        "max_rel_err": max(v["err_kernel"] for v in rs.values()),
+        "ms": rs_tot["ms"], "plain_ms": rs_tot["plain_ms"],
+        "bound_ms": rs_tot["bound_ms"], "bound_by": "bytes",
+        "library_ms": rs_tot["library_ms"], "bound_hits_ms": None})
+    if n_launch < 1:
+        raise AssertionError("row_scatter: no launch on a main path")
     log(json.dumps({"kernels": kernels}))
     log(smi("name,power.limit"))
     log(json.dumps({"ok": True, "device": {

@@ -10,10 +10,11 @@ Gaussian MLPs / geometry MLPs / exposure / camera deltas).
 
 The trainables are a dict of leaf tensors, ``gs_params``: the map's global
 feature arrays themselves (gradients reach them through the local-index
-gather), the decoders' weights, and the per-keyframe exposure and pose
-delta pools. The step updates them in place (the JAX version returns new
-arrays) and every leaf is stepped every iteration, with a zero gradient
-where the loss does not reach it, as optax does.
+gather, ``ops.row_gather.gather_rows``), the decoders' weights, and the
+per-keyframe exposure and pose delta pools. The step updates them in place
+(the JAX version returns new arrays) and every leaf is stepped every
+iteration, with a zero gradient where the loss does not reach it, as optax
+does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from pings_tpu_torch.models.renderer import (
     ExposureParams, depth_to_normal, render)
 from pings_tpu_torch.models.spawn import (
     LocalPointData, spawn_kwargs_from_cfg)
+from pings_tpu_torch.ops.row_gather import gather_rows
 from pings_tpu_torch.ops.ssim import dssim_loss
 from pings_tpu_torch.ops.transforms import quat_to_rotmat
 from pings_tpu_torch.utils import trace
@@ -227,11 +229,12 @@ def make_cam_loss(cfg, width: int, height: int):
                  cached_contrib=None, use_bins=False):
         dev = m.positions.device
         zero = torch.zeros((), device=dev)
+        geo, col = gather_rows((m.geo_feat, m.color_feat), local_idx)
         local = LocalPointData(
             positions=m.positions[local_idx],
             quats=m.quats[local_idx],
-            geo_feat=m.geo_feat[local_idx],
-            color_feat=m.color_feat[local_idx],
+            geo_feat=geo,
+            color_feat=col,
             rgb=m.rgb[local_idx],
             valid=(local_idx < m.capacity) & m.valid_gs_mask[local_idx],
         )

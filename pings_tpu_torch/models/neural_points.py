@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from pings_tpu_torch import resolve_device
+from pings_tpu_torch.ops.row_gather import gather_rows
 from pings_tpu_torch.ops.transforms import (
     inv_cell, quat_multiply, quat_normalize, rotmat_to_quat, sum_sq_fused,
     voxel_hash)
@@ -343,8 +344,10 @@ def eval_neighbors(m: NeuralPointMap, qpts: torch.Tensor,
                    search_alpha: float = 0.2) -> QueryResult:
     """The light half: gather the K selected rows and recompute distances,
     IDW weights and offsets for ``qpts``. Differentiable in ``qpts`` and
-    in the map's feature arrays. Neighbours outside the search radius of
-    these particular points are invalidated again."""
+    in the map's feature arrays (gathered by ``ops.row_gather.gather_rows``,
+    whose gradient is a hand-written kernel on the card). Neighbours
+    outside the search radius of these particular points are invalidated
+    again."""
     res = m.resolution
     cap = m.capacity
     dev = qpts.device
@@ -366,8 +369,9 @@ def eval_neighbors(m: NeuralPointMap, qpts: torch.Tensor,
 
     ki = kinvalid[..., None]
     off = torch.where(ki, zero, diff * inv_cell(res))
-    gf = torch.where(ki, zero, m.geo_feat[kidx])
-    cf = torch.where(ki, zero, m.color_feat[kidx])
+    geo, col = gather_rows((m.geo_feat, m.color_feat), kidx)
+    gf = torch.where(ki, zero, geo)
+    cf = torch.where(ki, zero, col)
     nn_count = torch.sum(~kinvalid, dim=-1)
     return QueryResult(torch.cat([gf, off], dim=-1),
                        torch.cat([cf, off], dim=-1), w, kidx, nn_count,

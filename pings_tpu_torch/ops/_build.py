@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("blend_fwd", "blend_bwd", "blend_contrib")
+KERNELS = ("blend_fwd", "blend_bwd", "blend_contrib", "row_scatter")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -46,6 +46,7 @@ from pings_tpu_torch.models.spawn import (
     LocalPointData, spawn_gaussians, spawn_kwargs_from_cfg)
 from pings_tpu_torch.ops import raster_blend as rb
 from pings_tpu_torch.ops import rasterize as rz
+from pings_tpu_torch.ops.row_gather import gather_rows
 from pings_tpu_torch.ops.ssim import dssim_loss
 from pings_tpu_torch.parallel.distributed import (
     all_gather_rows, all_reduce_mean, shard_rows, sum_gradient)
@@ -243,10 +244,10 @@ def make_gauss_sharded_train_step(cfg, optimizer, mesh: Mesh, width: int,
         for t in leaves:
             t.grad = None
         m, d = apply_gs_params(static_map, decoders, params)
+        geo, col = gather_rows((m.geo_feat, m.color_feat), local_idx)
         local = LocalPointData(
             positions=m.positions[local_idx], quats=m.quats[local_idx],
-            geo_feat=m.geo_feat[local_idx],
-            color_feat=m.color_feat[local_idx], rgb=m.rgb[local_idx],
+            geo_feat=geo, color_feat=col, rgb=m.rgb[local_idx],
             valid=(local_idx < m.capacity) & m.valid_gs_mask[local_idx])
         res = render_gauss_sharded(
             mesh, local, d, cam, width, height, bg=bg,

@@ -60,7 +60,7 @@ from pings_tpu_torch.models.spawn import (
     LocalPointData, SpawnedGaussians, gather_local_data, local_indices,
     spawn_gaussians, spawn_kwargs_from_cfg)
 from pings_tpu_torch.odometry.tracker import Tracker
-from pings_tpu_torch.ops import transforms as tf
+from pings_tpu_torch.ops import row_gather, transforms as tf
 from pings_tpu_torch.ops.scan_normals import scan_incidence_cos
 from pings_tpu_torch.slam.loop_detector import (
     ScanContextManager, detect_local_loop)
@@ -212,8 +212,12 @@ class SlamSystem:
         rep = FrameReport()
         self.frame_id += 1
         rep.frame_id = self.frame_id
+        scatters = row_gather.scatters()
         with trace.span("process_frame", root_id=self.frame_id):
             self._process_frame(frame, rep)
+        # the feature tables' gradient scatters (ops.row_gather), counted
+        # on the host: 5 a GS iteration, 2 an iteration of the SDF step
+        rep.metrics["row_scatters"] = row_gather.scatters() - scatters
         return rep
 
     def _process_frame(self, frame: dict, rep: FrameReport) -> None:

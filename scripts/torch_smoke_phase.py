@@ -6,6 +6,7 @@
     python3 scripts/torch_smoke_phase.py bench
     python3 scripts/torch_smoke_phase.py kitti_options [--runs 5]
     python3 scripts/torch_smoke_phase.py validation
+    python3 scripts/torch_smoke_phase.py row_scatter
 
 ``parallel`` builds the kernels, ray-casts the kitti train cell's frames
 112-121 and runs the smoke's ``parallel`` phase (groups of 1, 2 and 4 ranks
@@ -18,7 +19,10 @@ and holds and times the kernels on its tables (``chip_smoke.bench``).
 runs the options cell (deskew, dynamic filter, semantics; every frame
 must track) ``--runs`` times, about 60 s each. ``validation`` writes the
 same 12 frames and runs the validation suite's kitti leg on them
-(``chip_smoke.validation``). Exits non-zero if a run failed.
+(``chip_smoke.validation``). ``row_scatter`` prints the kernels' register
+use and runs ``chip_smoke.row_scatter_check`` (the feature tables'
+gradient scatter at the kitti shapes, held and timed). Exits non-zero if a
+run failed.
 """
 
 import argparse
@@ -36,7 +40,8 @@ sys.path.insert(0, str(ROOT))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("parallel", "slam_loop", "bench",
-                                      "kitti_options", "validation"))
+                                      "kitti_options", "validation",
+                                      "row_scatter"))
     ap.add_argument("--runs", type=int, default=1)
     args = ap.parse_args()
 
@@ -50,7 +55,13 @@ def main():
     if not torch.cuda.is_available():
         print("torch_smoke_phase: needs a CUDA device", file=sys.stderr)
         return 1
-    _build.build_all()
+    logs = _build.build_all()
+    if args.phase == "row_scatter":
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if any(w in line for w in ("registers", "Compiling entry",
+                                           "stack frame", "spill")):
+                    print(f"  {name}: {line.strip()}", flush=True)
     if args.phase in ("kitti_options", "validation"):
         sys.path.insert(0, str(ROOT / "scripts"))
         from torch_make_kitti_data import make_kitti
@@ -73,6 +84,8 @@ def main():
                 cs.kitti_options(torch, rb, os.path.join(tmp, "kitti_synth"))
             elif args.phase == "validation":
                 cs.validation(os.path.join(tmp, "kitti_synth"))
+            elif args.phase == "row_scatter":
+                cs.row_scatter_check(torch)
             else:
                 cs.slam_loop(torch, rb)
             print(f"run {k}: passed in {time.perf_counter() - t0:.1f} s",

@@ -14,11 +14,17 @@ from the root down) the count, the mean host ms, the mean ms of the
 the read sites by their total wait; for a SLAM cell the mean per frame of
 the program's ``training`` span beside the harness's frame time minus the
 four earlier stages over the same frames, and the GS iterations' sum plus
-the time outside them against the ``training`` span. With ``--profile``
-one more frame or view runs under ``torch.profiler`` (CPU and CUDA), and
-each kernel is charged to the stage (of the GS step or of ``render()``)
-whose ``record_function`` range was open on the host when the kernel was
-launched, from any thread. Needs a CUDA device.
+the time outside them against the ``training`` span, and the mean
+``row_scatters`` (the feature tables' gradient scatters) per frame beside
+5 x ``gs_iters``. With ``--profile`` one more frame or view runs under
+``torch.profiler`` (CPU and CUDA, with shapes), and each kernel is
+charged to the stage (of the GS step or of ``render()``) whose
+``record_function`` range was open on the host when the kernel was
+launched, from any thread; and the kernels launched inside each
+backward node of a row gather from a table (``IndexBackward0``,
+PyTorch's own; ``_GatherRowsBackward``, ``ops.row_gather``'s) are
+charged to that node, named by its cotangent's shape and the forward op
+of its sequence number. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ if str(ROOT) not in sys.path:
 STAGES = ("batch", "forward", "loss", "backward", "optimizer",
           "mark_visible", "spawn", "project", "bin", "blend_kernel",
           "assemble", "contrib")
+# the backward nodes of a row gather, PyTorch's and ops.row_gather's, and
+# their forward ops
+GATHER_NODES = ("IndexBackward0", "_GatherRowsBackward")
+GATHER_OPS = ("aten::index", "_GatherRows")
 
 
 def path_of(root, i):
@@ -98,6 +108,10 @@ def slam_checks(trace, d, roots) -> dict:
         iters.extend(r.spans[i].ns / 1e9 for i in its)
         outside.append(r.outside_ns(t, lambda s: s.name == "gs_iter") / 1e9)
     mean = lambda xs: sum(xs) / len(xs)
+    scat = [reps[r.id]["metrics"].get("row_scatters") for r in frames]
+    gs = [reps[r.id]["metrics"].get("gs_iters", 0) for r in frames]
+    if None not in scat:
+        out.update(row_scatters=mean(scat), five_gs_iters=5 * mean(gs))
     out.update(
         training_span_ms=1e3 * mean(prog),
         harness_training_ms=1e3 * mean(harness),
@@ -109,12 +123,16 @@ def slam_checks(trace, d, roots) -> dict:
     return out
 
 
-def profile_one(torch, fn) -> dict:
-    """fn() under a CPU+CUDA profile; each kernel charged to the stage
-    range open on the host at its launch: {stage: {kernel: ms}}."""
+def profile_one(torch, fn):
+    """fn() under a CPU+CUDA profile: ({stage: {kernel: ms}}, each kernel
+    charged to the stage range open on the host at its launch; {gather
+    node: {"n", "dev_ms", "kernels", "forward"}}, the kernels launched on
+    the node's thread inside a row gather's backward node, keyed by the
+    node's name and its cotangent's shape)."""
     tp = torch.profiler
     with tp.profile(activities=[tp.ProfilerActivity.CPU,
-                                tp.ProfilerActivity.CUDA]) as prof:
+                                tp.ProfilerActivity.CUDA],
+                    record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     evs = prof.profiler.kineto_results.events()
@@ -122,25 +140,52 @@ def profile_one(torch, fn) -> dict:
     host = [e for e in evs if e.device_type() != cuda]
     ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
                     for e in host if e.name() in STAGES)
-    launch = {e.correlation_id(): e.start_ns() for e in host
-              if e.name().startswith("cuda")}
+    launch = {e.correlation_id(): (e.start_ns(), e.start_thread_id())
+              for e in host if e.name().startswith("cuda")}
+    # a backward node's forward op: the event of its sequence number on
+    # the thread that ran the forward
+    fwd = {}
+    for e in sorted(host, key=lambda e: e.start_ns()):
+        if e.sequence_nr() >= 0 and e.name() in GATHER_OPS:
+            fwd.setdefault((e.start_thread_id(), e.sequence_nr()), e.name())
+    nodes = []
+    for e in host:
+        if e.name() in GATHER_NODES:
+            shape = list(e.shapes()[0]) if e.shapes() else []
+            nodes.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                          e.start_thread_id(), f"{e.name()} {shape}",
+                          fwd.get((e.fwd_thread_id(), e.sequence_nr()))))
     # the profiler mirrors each record_function range onto the card's
     # timeline: those are not kernels
     annotations = {e.name() for e in host}
     out = defaultdict(lambda: defaultdict(float))
+    gathers = defaultdict(lambda: {"n": 0, "dev_ms": 0.0,
+                                   "kernels": defaultdict(float)})
+    for _, _, _, key, op in nodes:
+        gathers[key]["n"] += 1
+        gathers[key]["forward"] = op
     for e in evs:
         if (e.device_type() != cuda or e.duration_ns() <= 0
                 or e.name() in annotations):
             continue
-        t = launch.get(e.correlation_id())
+        ms = e.duration_ns() / 1e6
+        t, tid = launch.get(e.correlation_id(), (None, None))
         stage = "(no launch found)" if t is None else "(outside a stage)"
         if t is not None:
             inner = [r for r in ranges if r[0] <= t <= r[1]]
             if inner:       # the innermost (latest-starting) range
                 stage = max(inner)[2]
-        out[stage][e.name()[:80]] += e.duration_ns() / 1e6
-    return {s: dict(sorted(k.items(), key=lambda kv: -kv[1])[:8])
-            for s, k in out.items()}
+            for a, b, th, key, _ in nodes:
+                if th == tid and a <= t <= b:
+                    gathers[key]["dev_ms"] += ms
+                    gathers[key]["kernels"][e.name()[:60]] += ms
+                    break
+        out[stage][e.name()[:80]] += ms
+    stages = {s: dict(sorted(k.items(), key=lambda kv: -kv[1])[:8])
+              for s, k in out.items()}
+    return stages, {k: dict(v, kernels=dict(v["kernels"]))
+                    for k, v in sorted(gathers.items(),
+                                       key=lambda kv: -kv[1]["dev_ms"])}
 
 
 def main(argv=None) -> int:
@@ -192,14 +237,16 @@ def main(argv=None) -> int:
     if hasattr(d, "reports"):
         rep["checks"] = slam_checks(trace, d, roots)
     if args.profile:
+        prof = None
         if hasattr(d, "reports"):
             fid = d.reports[-1]["frame"] + 1
             if fid < len(d.frames):
-                rep["kernels_by_stage"] = profile_one(
+                prof = profile_one(
                     torch, lambda: d.system.process_frame(d.frames[fid]))
         else:
-            rep["kernels_by_stage"] = profile_one(
-                torch, lambda: d._view(d.warm))
+            prof = profile_one(torch, lambda: d._view(d.warm))
+        if prof is not None:
+            rep["kernels_by_stage"], rep["gather_backward"] = prof
     for n in names:
         print(f"== {n}: {rep['roots'][n]} roots, host reads a root "
               f"{rep['host_reads_per_root'][n]:.2f}")
@@ -215,6 +262,10 @@ def main(argv=None) -> int:
     for stage, ks in rep.get("kernels_by_stage", {}).items():
         print(f"kernels under {stage}: "
               + "; ".join(f"{k} {v:.2f} ms" for k, v in ks.items()))
+    for node, v in rep.get("gather_backward", {}).items():
+        print(f"gather backward {node} (forward {v['forward']}): n {v['n']}, "
+              f"device {v['dev_ms']:.2f} ms: "
+              + "; ".join(f"{k} {x:.2f}" for k, x in v["kernels"].items()))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rep, indent=1))

@@ -386,7 +386,7 @@ def test_build_lists_every_kernel_source():
     srcs = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                   if f.endswith(".cu"))
     assert srcs == sorted(_build.KERNELS) == ["blend_bwd", "blend_contrib",
-                                              "blend_fwd"]
+                                              "blend_fwd", "row_scatter"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 

@@ -77,6 +77,19 @@ def test_off_records_nothing_and_keeps_the_timings(recorded):
     assert all(v >= 0.0 for v in rep.timings.values())
 
 
+def test_row_scatters_count_the_feature_gradients(recorded):
+    """The feature tables' gradient scatters of a frame, counted on the
+    host: five a GS iteration (the window, the Gaussian-SDF centres and
+    their probes, the SDF batch and its probes), two an iteration of the
+    SDF step, which runs on its own on frame 0 only when GS is on."""
+    for way in ("off", "enable", "profiler"):
+        rep = recorded[way][0]
+        m = rep.metrics
+        sdf = m["sdf_iters"] if rep.frame_id == 0 else 0
+        assert m["gs_iters"] > 0 and m["sdf_iters"] > 0, (way, m)
+        assert m["row_scatters"] == 5 * m["gs_iters"] + 2 * sdf, (way, m)
+
+
 def _parents(root):
     return {(s.name, root.spans[s.parent].name if s.parent >= 0 else None)
             for s in root.spans}
